@@ -1,0 +1,134 @@
+"""Band nearest-neighbour search: sort + sweep (port of pcr_tpu/ops/band_nn.py).
+
+  1. sort the refs along the axis of largest extent (once per index);
+  2. group the queries into tiles of ``q_tile`` spatially consecutive points
+     (once — the grouping may go stale under the rigid motion of an ICP loop
+     without hurting correctness, since slab bounds are recomputed from the
+     CURRENT coordinates on every query);
+  3. each tile's candidates are ONE contiguous slab of the sorted refs:
+     [searchsorted(tile_min - r) rounded down to ``band``, + 2*band);
+  4. kernel K1 (``ops/kernels/nn_kernels.nn1_band``) finds every query's
+     nearest slab row.
+
+Exact while every tile's in-radius band fits in 2*band sorted rows;
+overflowing slabs lose the farthest candidates only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .kernels import nn_kernels
+from ..utils.cloud import pad_rows
+
+BIG = 3.0e38
+SENTINEL = 1.0e6
+
+
+class BandIndex(NamedTuple):
+    """Sorted-ref structure + query grouping (build once per pair)."""
+
+    r_sorted: torch.Tensor   # (Nr_pad, 3) refs sorted by axis coord (+sentinel pad)
+    ra_sorted: torch.Tensor  # (Nr,) sorted axis coords (unpadded)
+    r_order: torch.Tensor    # (Nr,) sort permutation into original indices
+    q_order: torch.Tensor    # (Nq,) query grouping permutation
+    axis: torch.Tensor       # 0-dim int64 — sweep axis
+
+
+def _axis_coord(pts: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """pts[:, axis] without a host sync on ``axis``."""
+    return pts.gather(1, axis.view(1, 1).expand(pts.shape[0], 1))[:, 0]
+
+
+def _sq_f32(x: float) -> float:
+    """x*x rounded as float32 arithmetic rounds it (the JAX package squares
+    its f32 max_dist on device); a host float, so no device sync."""
+    return float(np.float32(x) * np.float32(x))
+
+
+def build_band_index(query, query_mask, ref, ref_mask, *, q_tile: int = 1024,
+                     band: int = 2048) -> BandIndex:
+    """Sort refs along the largest-extent axis; group queries by it.
+    Both sorts are stable, as JAX's are."""
+    nr = ref.shape[0]
+    qpts = torch.where(query_mask[:, None], query, SENTINEL)
+    rpts = torch.where(ref_mask[:, None], ref, SENTINEL)
+    rmax = torch.where(ref_mask[:, None], ref, -3e38).amax(dim=0)
+    rmin = torch.where(ref_mask[:, None], ref, 3e38).amin(dim=0)
+    axis = torch.argmax(rmax - rmin)
+    qa = _axis_coord(qpts, axis)
+    ra = _axis_coord(rpts, axis)
+    q_order = torch.argsort(qa, stable=True)
+    r_order = torch.argsort(ra, stable=True)
+    nr_pad = (-(-nr // band) + 1) * band
+    r_sorted = pad_rows(rpts[r_order], nr_pad, SENTINEL)
+    return BandIndex(r_sorted, ra[r_order].contiguous(), r_order, q_order, axis)
+
+
+def slab_starts(index: BandIndex, q_sp: torch.Tensor, max_dist: float,
+                 q_tile: int, band: int) -> torch.Tensor:
+    """(n_tiles,) int32 element offset of each query tile's slab: the first
+    sorted ref within max_dist of the tile's lowest query, rounded down to a
+    band multiple and clipped so the 2*band slab stays inside the refs."""
+    n_tiles = q_sp.shape[0] // q_tile
+    tile_min = _axis_coord(q_sp, index.axis).view(n_tiles, q_tile).amin(dim=1)
+    starts = torch.searchsorted(index.ra_sorted, tile_min - max_dist)
+    max_blk = max(index.r_sorted.shape[0] // band - 2, 0)
+    return (torch.clamp(starts // band, 0, max_blk) * band).to(torch.int32)
+
+
+def nn1_band_query(index: BandIndex, query, query_mask, max_dist: float, *,
+                   q_tile: int = 1024, band: int = 2048):
+    """Nearest ref within max_dist per query, using a prebuilt index (query
+    coordinates may have moved since the build).
+
+    Returns (exact sqdist, original ref index), both in query order;
+    out-of-range -> (BIG, index of the nearest slab row).
+    """
+    nq = query.shape[0]
+    nr = index.ra_sorted.shape[0]
+    qpts = torch.where(query_mask[:, None], query, SENTINEL)
+    q_s = qpts[index.q_order]                                 # (Nq, 3) grouped
+    nq_pad = -(-nq // q_tile) * q_tile
+    q_sp = pad_rows(q_s, nq_pad, SENTINEL).contiguous()
+    starts_el = slab_starts(index, q_sp, max_dist, q_tile, band)
+    _, i_sorted = nn_kernels.nn1_band(starts_el, q_sp, index.r_sorted,
+                                      q_tile=q_tile, band=band)
+    i_sorted = torch.clamp(i_sorted[:nq].long(), 0, nr - 1)
+    diff = q_s - index.r_sorted[i_sorted]
+    d_exact = torch.sum(diff * diff, dim=1)
+    d_final = torch.where(d_exact <= _sq_f32(max_dist), d_exact, BIG)
+    out_d = torch.empty_like(d_final)
+    out_i = torch.empty(nq, dtype=torch.int64, device=query.device)
+    out_d[index.q_order] = d_final
+    out_i[index.q_order] = index.r_order[i_sorted]
+    return out_d, out_i
+
+
+def nn1_band_query_sorted(index: BandIndex, q_sorted, q_sorted_mask,
+                          max_dist: float, *, q_tile: int = 1024, band: int = 2048):
+    """Band query for callers that LIVE in sorted space: ``q_sorted`` is
+    already grouped by ``index.q_order`` and padded to a q_tile multiple.
+
+    Returns (sqdist, SORTED-ref row index), both in sorted query order;
+    out-of-range -> (BIG, clipped row).  K1's distance is exact (the direct
+    (q - r)^2), so it is returned as is: pcr_tpu's ``rescore`` pass, which
+    corrects its kernel's expansion distance, has nothing to correct here.
+    """
+    nr = index.ra_sorted.shape[0]
+    q_sp = torch.where(q_sorted_mask[:, None], q_sorted, SENTINEL).contiguous()
+    starts_el = slab_starts(index, q_sp, max_dist, q_tile, band)
+    d2, i_sorted = nn_kernels.nn1_band(starts_el, q_sp, index.r_sorted,
+                                       q_tile=q_tile, band=band)
+    i_sorted = torch.clamp(i_sorted.long(), 0, nr - 1)
+    return torch.where(d2 <= _sq_f32(max_dist), d2, BIG), i_sorted
+
+
+def nn1_band(query, query_mask, ref, ref_mask, max_dist: float, *,
+             q_tile: int = 1024, band: int = 2048):
+    """One-shot band NN (build + query)."""
+    index = build_band_index(query, query_mask, ref, ref_mask, q_tile=q_tile, band=band)
+    return nn1_band_query(index, query, query_mask, max_dist, q_tile=q_tile, band=band)

@@ -1,0 +1,63 @@
+"""Argument checks and the shared plain-version helpers of the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+REAL_D2_MAX = 1.0e10   # any query-candidate pair with d2 above this involves a sentinel
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if the tensors are on a CUDA device, False if on the CPU; raises
+    for anything else or for a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors must all be on the CPU or on one CUDA device, got "
+                     f"{[str(t.device) for t in tensors]}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` has ``dtype``, ``shape`` and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_tiling(n_rows: int, q_tile: int, n_tiles: int, band: int,
+                 nr_pad: int) -> None:
+    """The launch geometry every slab kernel assumes (slab starts themselves
+    come clipped to [0, nr_pad - 2*band] from their callers)."""
+    if n_rows != n_tiles * q_tile:
+        raise ValueError(f"{n_rows} query rows != {n_tiles} tiles x {q_tile}")
+    if not (q_tile < 128 or q_tile % 128 == 0):
+        raise ValueError(f"q_tile {q_tile} must be below 128 or a multiple of 128")
+    if 2 * band > nr_pad:
+        raise ValueError(f"slab of 2*{band} rows exceeds the {nr_pad} ref rows")
+
+
+def slabs(starts_el: torch.Tensor, r: torch.Tensor, band: int) -> torch.Tensor:
+    """(n_tiles, 2*band, 3) contiguous slab rows of the sorted refs."""
+    rows = starts_el.long()[:, None] + torch.arange(2 * band, device=r.device)[None, :]
+    return r[rows]
+
+
+def sqdist_tiles(q: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
+    """(T, TQ, 3) x (T, S, 3) -> (T, TQ, S) squared distances as
+    ((dx*dx + dy*dy) + dz*dz), one rounding per operation — the order the
+    CUDA kernels use, so the two agree bit for bit."""
+    d = None
+    for a in range(3):
+        diff = q[:, :, None, a] - slab[:, None, :, a]
+        d = diff * diff if d is None else d + diff * diff
+    return d
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,186 @@
+"""Stage-2 runner (port of pcr_tpu/pipeline.py, the streamed single-pair
+branch of ``run_stage2_mgicp``).
+
+Stage contract, kept from the reference: every stage persists poses as
+``pose_{i+1}_{i}.txt`` / ``pose{i}.txt`` text files and the next stage reloads
+them, so the pipeline is restartable at stage granularity.
+
+Not ported yet: stage 1 (FGR) and with it the stage-2 retry ladder, the
+batched (``batch_size > 1``) and mesh branches, stage 3 and the CLI.  Each
+raises ``NotImplementedError`` where a run would need it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+
+from .models import evaluate as eval_mod
+from .models import multiscale as ms_mod
+from .utils import cloud as cloud_mod
+from .utils import poses_io, se3
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """The stage-2 fields of ``pcr_tpu.pipeline.PipelineConfig`` that the
+    ported branch reads, with the same defaults (the reference's constants)."""
+
+    dataset: str = "Facade"
+    voxel_size: float = 0.1
+    mgicp_scales: int = 5
+    mgicp_iterations: int = 100
+    # A pair whose refined fitness lands at/below retry_fitness is re-seeded
+    # with FGR at coarser voxels in pcr_tpu; that ladder needs stage 1, so
+    # here such a pair raises unless retry_failed is False.
+    retry_failed: bool = True
+    retry_fitness: float = 0.15
+    batch_size: int = 2
+    # pairs registered ahead of the oldest result read
+    inflight: int = 4
+    # "auto": plan the tightest safe capacities from the clouds
+    # (cloud.plan_scale_caps); a tuple pins them; None disables compaction.
+    scale_capacities: tuple | str | None = "auto"
+    output_root: str = "outputs"
+
+    def out_dir(self, stage: str) -> str:
+        return os.path.join(self.output_root, stage, self.dataset)
+
+
+def circuit_pairs(n: int) -> list[tuple[int, int]]:
+    """(source, target) scan indices of the closed circuit: (1,0), (2,1),
+    ..., (0, n-1)."""
+    return [((i + 1) % n, i) for i in range(n)]
+
+
+class PairMetrics:
+    """Per-pair structured metrics log."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add(self, stage, src, tgt, fitness, rmse, seconds, **extra):
+        self.rows.append(
+            dict(stage=stage, src=int(src), tgt=int(tgt), fitness=float(fitness),
+                 rmse=float(rmse), seconds=float(seconds), **extra))
+
+    def save(self, path, stage: str | None = None):
+        """Write rows as jsonl; ``stage`` keeps only that stage's rows."""
+        rows = self.rows if stage is None else [r for r in self.rows if r["stage"] == stage]
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as fh:
+            for row in rows:
+                fh.write(json.dumps(row) + "\n")
+
+    def success_rate(self, gate: float, key: str = "fitness",
+                     stage: str | None = None) -> float:
+        """Fraction of pairs whose ``key`` exceeds ``gate`` (for stage 2 use
+        key='gate_fitness', the full-cloud fitness at 2*voxel)."""
+        rows = [r for r in self.rows
+                if (stage is None or r["stage"] == stage) and key in r]
+        if not rows:
+            return 0.0
+        return sum(1 for r in rows if r[key] > gate) / len(rows)
+
+
+def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
+                           metrics: PairMetrics) -> np.ndarray:
+    """Full-cloud fitness at 2*voxel for every refined pair (band-NN
+    evaluation); each pair's metrics row gains a ``gate_fitness``."""
+    eval_dist = 2 * cfg.voxel_size
+    fit, _, _ = eval_mod.evaluate_registration_batch(
+        [clouds[s] for s, _ in pairs], [clouds[t] for _, t in pairs], eval_dist,
+        [np.asarray(poses[k], np.float32) for k in range(len(pairs))])
+    gate = fit.double().cpu().numpy()
+    row_for = {(r["src"], r["tgt"]): i for i, r in enumerate(metrics.rows)
+               if r["stage"] == "mgicp"}
+    for k, (s, t) in enumerate(pairs):
+        if (s, t) in row_for:
+            metrics.rows[row_for[(s, t)]]["gate_fitness"] = float(gate[k])
+    return gate
+
+
+def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
+                     clouds=None, n: int | None = None, mesh=None,
+                     metrics: PairMetrics | None = None) -> np.ndarray:
+    """M-GICP refinement of the stage-1 poses over all circuit pairs.
+
+    ``clouds`` is a list of port Clouds (all on one device, which is where
+    the run happens); ``init_poses`` (n, 4, 4) or the stage-1 pose files.
+    Pairs stream one at a time over per-cloud pyramids that are built once
+    and shared by the two pairs each cloud serves.  Returns (n, 4, 4) f64
+    relative poses and writes them, the absolute chain and the metrics.
+    """
+    if mesh is not None or cfg.batch_size > 1:
+        raise NotImplementedError(
+            "only the streamed branch (batch_size=1, no mesh) is ported")
+    if clouds is None:
+        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
+    n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if init_poses is None:
+        init_poses = poses_io.load_relative_circuit(cfg.out_dir("relative_poses_FGR"), n)
+    metrics = metrics if metrics is not None else PairMetrics()
+    pairs = circuit_pairs(n)
+    caps = cfg.scale_capacities
+    if caps == "auto":
+        caps = cloud_mod.plan_scale_caps(clouds, ms_mod.create_scales(cfg.mgicp_scales))
+    out = np.zeros((n, 4, 4))
+    pyr_cache: dict[int, tuple] = {}
+
+    def pyramid(i):
+        if i not in pyr_cache:
+            pyr_cache[i] = ms_mod.build_pyramid(clouds[i], n_scales=cfg.mgicp_scales,
+                                                scale_capacities=caps)
+        return pyr_cache[i]
+
+    ckpt = os.path.join(cfg.out_dir("metrics"), "stage2_partial.npy")
+    # Pipelined loop: register up to cfg.inflight pairs before reading the
+    # oldest result, so its device-to-host reads overlap the next pairs' work.
+    inflight: list[tuple] = []
+    drained = 0
+    last_drain = time.time()
+
+    def drain_one():
+        nonlocal drained, last_drain
+        k, s, t, res = inflight.pop(0)
+        fit = float(res.fitness)
+        if cfg.retry_failed and fit <= cfg.retry_fitness:
+            raise NotImplementedError(
+                f"pair ({s}, {t}) fitness {fit:.4f} <= retry_fitness "
+                f"{cfg.retry_fitness}: the FGR retry ladder is not ported "
+                "(run with retry_failed=False to keep the unretried pose)")
+        out[k] = res.transformation.double().cpu().numpy()
+        now = time.time()   # wall-true delta between consecutive reads
+        metrics.add("mgicp", s, t, fit, float(res.inlier_rmse), now - last_drain,
+                    status="ok", scale_iterations=res.scale_iterations.tolist())
+        last_drain = now
+        drained = k + 1
+        if drained % 50 == 0:  # crash-resumable partial checkpoint
+            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+            np.save(ckpt, out[:drained])
+            metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"),
+                         stage="mgicp")
+
+    for k, (s, t) in enumerate(pairs):
+        res = ms_mod.multiscale_gicp_pyramids(
+            pyramid(s), pyramid(t), np.asarray(init_poses[k], np.float32),
+            n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations)
+        inflight.append((k, s, t, res))
+        # keep only the pyramids the next pair still needs
+        for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
+            del pyr_cache[key]
+        while len(inflight) >= max(cfg.inflight, 1):
+            drain_one()
+    while inflight:
+        drain_one()
+    _annotate_gate_fitness(cfg, clouds, pairs, out, metrics)
+    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out)
+    poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
+                                 se3.relative_to_absolute(out))
+    metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
+    return out
+

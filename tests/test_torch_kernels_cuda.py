@@ -1,0 +1,89 @@
+"""Kernels K1-K3 on the card against their plain PyTorch versions on the
+same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
+file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pcr_tpu_torch.ops import preprocess
+from pcr_tpu_torch.ops.kernels import feature_kernels, nn_kernels
+from pcr_tpu_torch.utils import cloud
+
+
+@pytest.fixture
+def cuda_rng():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return np.random.default_rng(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band,q_tile", [(1024, 1024), (2048, 1024), (256, 128)])
+def test_nn1_band_kernel_matches_plain(cuda_rng, band, q_tile):
+    """Bit-equal distances (the same rounded formula) and equal rows (both
+    keep the first minimum); the wrapper counts its launch."""
+    dev = torch.device("cuda")
+    r = torch.as_tensor(cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32), device=dev)
+    q = torch.as_tensor(cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32), device=dev)
+    rs = r[torch.argsort(r[:, 0], stable=True)]
+    rs = torch.cat([rs, torch.full((2 * band, 3), 1e6, device=dev)]).contiguous()
+    qs = q[torch.argsort(q[:, 0], stable=True)].contiguous()
+    max_start = (rs.shape[0] - 2 * band) // band
+    starts = (torch.arange(8192 // q_tile, device=dev) * q_tile // band).clamp(max=max_start)
+    starts = (starts * band).to(torch.int32)
+    before = nn_kernels.LAUNCHES["nn1_band"]
+    d_k, i_k = nn_kernels.nn1_band(starts, qs, rs, q_tile=q_tile, band=band)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["nn1_band"] == before + 1
+    d_p, i_p = nn_kernels.nn1_band_reference(starts, qs, rs, q_tile=q_tile, band=band)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_match_plain(cuda_rng):
+    """K2 and K3: the d2 formula and the bisection are the same, so found,
+    tau and the neighbour counts are equal; sums differ only in order
+    (f32, 1e-5 relative)."""
+    dev = torch.device("cuda")
+    pts = cuda_rng.uniform(-10, 10, size=(8000, 3)).astype(np.float32)
+    pts[:, 2] = 0.3 * np.sin(pts[:, 0])
+    c = cloud.from_numpy(pts, 8192, device=dev)
+    band = 512
+    _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, 1024, band)
+    mean_k, found_k, tau_k = feature_kernels.outlier_stats(starts, p_q, p_r, 0.1,
+                                                           q_tile=1024, band=band)
+    mean_p, found_p, tau_p = feature_kernels.outlier_stats_reference(
+        starts, p_q, p_r, 0.1, q_tile=1024, band=band)
+    assert torch.equal(found_k, found_p) and torch.equal(tau_k, tau_p)
+    torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=1e-7)
+    keep = ms & found_p[:8192]
+    keep_r = torch.cat([keep, torch.zeros(p_r.shape[0] - 8192, dtype=torch.bool, device=dev)])
+    center = feature_kernels.slab_centroids(starts, p_r, band)
+    args = (starts, p_q, p_r, keep_r, tau_p, center)
+    S_k = feature_kernels.survivor_moments(*args, q_tile=1024, band=band)
+    S_p = feature_kernels.survivor_moments_reference(*args, q_tile=1024, band=band)
+    assert torch.equal(S_k[:, 9], S_p[:, 9])
+    torch.testing.assert_close(S_k, S_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_path_never_falls_back(cuda_rng):
+    """On CUDA tensors the preprocess launches K2 and K3 (never their plain
+    versions); malformed arguments raise instead of running elsewhere."""
+    dev = torch.device("cuda")
+    pts = cuda_rng.uniform(-5, 5, size=(3000, 3)).astype(np.float32)
+    c = cloud.from_numpy(pts, 4096, device=dev)
+    before = dict(feature_kernels.LAUNCHES)
+    out = preprocess.preprocess_scale_fused(c, 0.2)
+    torch.cuda.synchronize()
+    assert out.points.is_cuda
+    for name in ("outlier_stats", "survivor_moments"):
+        assert feature_kernels.LAUNCHES[name] == before[name] + 1
+    starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        nn_kernels.nn1_band(starts, torch.zeros(256, 3, device=dev),
+                            torch.zeros(512, 3, device=dev), q_tile=256, band=256)
