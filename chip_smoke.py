@@ -13,14 +13,31 @@ Phases (any failure ends the run with a non-zero exit code):
                32768-row clouds), prints their agreement and both times
                (CUDA events, median);
   4. slice   — stage 2 (pipeline.run_stage2_mgicp: 5 scales, 100 iterations,
-               L1) over a seeded synthetic 8-scan circuit at NCLT scale whose
-               relative motions and initial-pose errors are the real NCLT
-               ones (outputs/NCLT_poses.npz); every pair must land within
+               L1) over a seeded synthetic 8-scan out-and-back circuit at
+               NCLT scale whose relative motions and initial-pose errors are
+               real NCLT ones (outputs/NCLT_poses.npz); every pair must land within
                3 cm / 0.2 deg of ground truth, and K1-K3 must each have been
                launched by the warm run;
-  5. split   — the warm circuit's time divided into pyramids and GICP.
+  5. split   — the warm circuit's time divided into pyramids and GICP;
+  6. feature kernels — K4 moments, K5 SPFH and K6 FPFH against their plain
+               versions on scan 0 compacted to its bucket (24576 rows,
+               q_tile 512, band 2048, voxel 0.1 m, the stage-1 path's shape)
+               and on a 4096-row compaction at band 1024;
+  7. stage 1 — pipeline.run_stage1_fgr (banded features, mutual matching,
+               tuple test, 300 GNC iterations) over the circuit, cold and
+               warm; every pair within 0.5 m / 5 deg of ground truth, and K1,
+               K4, K5 and K6 must each have been launched by the warm run;
+  8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses; every
+               pair within 3 cm / 0.2 deg;
+  9. stage-1 split — features ms/scan; matching, tuple test, GNC and
+               evaluation ms/pair.
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
+(8 operations) per (query, slab row) pair and the per-pair work of the pairs
+this run's data keeps; ``library_ms`` is null, as no single PyTorch call
+computes a banded neighbourhood reduction.
 """
 
 from __future__ import annotations
@@ -43,7 +60,16 @@ TARGET_POINTS = 24000     # valid points per scan (about)
 NOISE_M = 0.01
 MAX_T_ERR_M = 0.03
 MAX_R_ERR_DEG = 0.2
+# stage 1 (FGR): twice the worst real NCLT FGR error of the circuit's pairs
+# (22 cm / 2.1 deg, make_circuit's ``err``)
+MAX_FGR_T_ERR_M = 0.5
+MAX_FGR_R_ERR_DEG = 5.0
 SEED = 0
+SIDE_STEP_M = 1.0         # the way back runs this far to the left of the way out
+FEATURE_BAND = 2048       # PipelineConfig.stage1_band
+FEATURE_Q_TILE = 512      # fgr_features_sorted's query tile
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +81,24 @@ def _rot_z(a: float) -> np.ndarray:
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
 
 
+def _cylinder(rng, m: int, x: float, y: float, radius: float, z0: float, height: float):
+    """m samples of a vertical cylinder's side."""
+    a = rng.uniform(0, 2 * np.pi, m)
+    return np.stack([x + radius * np.cos(a), y + radius * np.sin(a),
+                     z0 + rng.uniform(0, height, m)], 1)
+
+
+def _sphere(rng, m: int, c, radius: float):
+    """m samples of a sphere's surface."""
+    v = rng.normal(size=(m, 3))
+    return np.asarray(c) + radius * v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
 def _world(rng: np.random.Generator, center: np.ndarray) -> np.ndarray:
     """Dense point samples of a scene that constrains all six degrees of
-    freedom: bumpy ground, walls in three directions and yawed boxes."""
+    freedom and gives FPFH distinct neighbourhoods: undulating ground with
+    mounds, walls in three directions, yawed boxes, trees (trunk and
+    canopy) and poles."""
     parts = []
     # ground within 36 m: low bumps (a few cm to 20 cm)
     n = 900_000
@@ -66,6 +107,15 @@ def _world(rng: np.random.Generator, center: np.ndarray) -> np.ndarray:
     x, y = center[0] + r * np.cos(th), center[1] + r * np.sin(th)
     z = (0.12 * np.sin(0.31 * x) * np.cos(0.27 * y) + 0.05 * np.sin(1.3 * x + 0.7 * y)
          - 1.8)
+    # terrain: 12 plane waves (wavelengths >= 2.1 m, amplitudes 0.06-0.2 m),
+    # so that every 1 m FPFH neighbourhood of the ground has its own shape
+    for kx, ky, ph, a in rng.uniform([-3.0, -3.0, 0.0, 0.06], [3.0, 3.0, 2 * np.pi, 0.2],
+                                     (12, 4)):
+        z += a * np.sin(kx * (x - center[0]) + ky * (y - center[1]) + ph)
+    # mounds: (x, y, height, width) Gaussian bumps
+    for mx, my, mh, mw in rng.uniform([-25, -25, 0.3, 1.0], [25, 25, 1.2, 3.0], (24, 4)):
+        z += mh * np.exp(-((x - center[0] - mx) ** 2 + (y - center[1] - my) ** 2)
+                         / (2 * mw * mw))
     parts.append(np.stack([x, y, z], 1))
     # walls: (anchor x, anchor y, direction angle, length, height)
     walls = [(-20, 14, 0.0, 45, 5), (-16, -18, np.pi / 2, 32, 4),
@@ -81,6 +131,8 @@ def _world(rng: np.random.Generator, center: np.ndarray) -> np.ndarray:
     boxes = [(6, 4, 0.3, 2.0, 1.5, 1.2), (-5, 7, 1.0, 3.0, 1.0, 2.0),
              (3, -7, -0.6, 1.5, 1.5, 2.5), (-9, -4, 0.1, 2.5, 2.0, 1.0),
              (12, 2, 0.8, 1.0, 3.0, 1.8), (-2, -12, 0.5, 4.0, 1.2, 1.5)]
+    boxes += [tuple(b) for b in rng.uniform([-25, -25, -np.pi, 1.5, 1.5, 0.8],
+                                            [25, 25, np.pi, 4.5, 2.0, 1.6], (14, 6))]
     for bx, by, yaw, sx, sy, sz in boxes:
         m = int(600 * (2 * (sx + sy) * sz + sx * sy))
         u = rng.random((m, 3)) * [sx, sy, sz]
@@ -93,6 +145,17 @@ def _world(rng: np.random.Generator, center: np.ndarray) -> np.ndarray:
         local = u - [sx / 2, sy / 2, 0.0]
         pts = local @ _rot_z(yaw).T + [center[0] + bx, center[1] + by, -1.8]
         parts.append(pts)
+    # trees: (x, y, trunk radius, trunk height, canopy radius)
+    for tx, ty, tr, th_, cr in rng.uniform([-25, -25, 0.15, 2.0, 1.0],
+                                          [25, 25, 0.4, 4.0, 2.5], (40, 5)):
+        parts.append(_cylinder(rng, int(3000 * th_ * tr), center[0] + tx, center[1] + ty,
+                               tr, -1.8, th_))
+        parts.append(_sphere(rng, int(1500 * cr * cr), [center[0] + tx, center[1] + ty,
+                                                         th_ - 1.8 + 0.8 * cr], cr))
+    # poles: (x, y, height)
+    for px, py, ph in rng.uniform([-25, -25, 3.0], [25, 25, 7.0], (20, 3)):
+        parts.append(_cylinder(rng, int(400 * ph), center[0] + px, center[1] + py, 0.1,
+                               -1.8, ph))
     return np.concatenate(parts)
 
 
@@ -100,15 +163,20 @@ def make_circuit(seed: int = SEED):
     """(scans as (n_i, 3) float32 arrays in their sensor frames,
     ground-truth relative poses (N_SCANS, 4, 4), initial poses (N_SCANS, 4, 4)).
 
-    Relative motions are NCLT's first refined pairs, the wraparound pair closes
-    the chain, and each initial pose carries the real FGR error of its pair
-    (relative_FGR @ inv(relative_FGR_GICP)).
+    An out-and-back circuit: the way out follows NCLT's first refined
+    relative motions, the way back passes the same places SIDE_STEP_M to the
+    left in reverse order, so every pair, the closing one included, is a
+    neighbour pair (0.45-1.5 m apart).  Each initial pose carries the real
+    FGR error of NCLT pair k (relative_FGR @ inv(relative_FGR_GICP)).
     """
     z = np.load(ROOT / "outputs" / "NCLT_poses.npz")
     rel_ref, rel_fgr = z["relative_FGR_GICP"], z["relative_FGR"]
-    absolute = [np.eye(4)]
-    for k in range(N_SCANS - 1):
-        absolute.append(absolute[-1] @ rel_ref[k])
+    forward = [np.eye(4)]
+    for k in range(N_SCANS // 2 - 1):
+        forward.append(forward[-1] @ rel_ref[k])
+    side = np.eye(4)
+    side[1, 3] = SIDE_STEP_M
+    absolute = forward + [A @ side for A in reversed(forward)]
     gt = np.stack([np.linalg.inv(absolute[k]) @ absolute[(k + 1) % N_SCANS]
                    for k in range(N_SCANS)])
     err = np.stack([rel_fgr[k] @ np.linalg.inv(rel_ref[k]) for k in range(N_SCANS)])
@@ -167,6 +235,38 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): the larger
+    of the bytes over the memory rate and the FP32 operations over the peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slab_work(starts, q, r, q_tile: int, band: int, per_kept: float, tau=None,
+              exclude_self: bool = False) -> float:
+    """FP32 operations of a slab pass: 9 a (query, slab row) pair (the d2 and
+    one threshold compare) plus ``per_kept`` for every pair the data keeps
+    (real, d2 <= tau and, for K5/K6, d2 > 0 off the query's own row)."""
+    from pcr_tpu_torch.ops.kernels import common
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+
+    n_tiles = starts.shape[0]
+    pairs = n_tiles * q_tile * 2 * band
+    if tau is None:
+        return 9.0 * pairs
+    q_t, tau_t = q.view(n_tiles, q_tile, 3), tau.view(n_tiles, q_tile)
+    kept = 0
+    for g in common.tile_groups(n_tiles, q_tile * 2 * band):
+        d2 = common.sqdist_tiles(q_t[g], common.slabs(starts[g], r, band))
+        if exclude_self:
+            keep = fk.pair_keep(d2, tau_t[g], starts[g], q_tile, band, g.start)
+        else:
+            keep = (d2 < common.REAL_D2_MAX) & (d2 <= tau_t[g][..., None])
+        kept += int(keep.sum())
+    return 9.0 * pairs + per_kept * kept
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -211,10 +311,13 @@ def check_k1(label: str, src, tgt, T, max_dist: float, band: int):
     err = float((d_k - d_p)[in_p].abs().max()) if int(in_p.sum()) else 0.0
     ms = cuda_ms(lambda: nk.nn1_band(*args, q_tile=1024, band=band), 20)
     plain_ms = cuda_ms(lambda: nk.nn1_band_reference(*args, q_tile=1024, band=band), 5)
+    nr = index.r_sorted.shape[0]
+    lim = bound(4 * starts.shape[0] + 12 * q.shape[0] + 12 * nr + 8 * q.shape[0],
+                slab_work(starts, q, index.r_sorted, 1024, band, 0.0))
     print(f"K1 nn1_band {label}: {q.shape[0]} q, band {band}, {int(in_p.sum())} in radius, "
           f"rows equal {float((i_k == i_p).float().mean()):.6f}, "
           f"max |d2 err| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, *lim
 
 
 def check_k2_k3(label: str, c, voxel_size: float, cap: int):
@@ -249,6 +352,9 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
                              f"{float((mean_k - mean_p).abs().max())}")
     err2 = float((mean_k - mean_p).abs().max())
     ms2 = cuda_ms(lambda: fk.outlier_stats(*k2_args, q_tile=1024, band=band), 10)
+    n_pad, nr_pad = p_q.shape[0], p_r.shape[0]
+    lim2 = bound(4 * starts.shape[0] + 12 * n_pad + 12 * nr_pad + 9 * n_pad,
+                 slab_work(starts, p_q, p_r, 1024, band, 2.0, tau=tau_p))
     plain2 = cuda_ms(lambda: fk.outlier_stats_reference(*k2_args, q_tile=1024, band=band), 3)
     print(f"K2 outlier_stats {label}: {cap} rows, band {band}, {int(found_p.sum())} found, "
           f"found/tau equal, max |mean_d err| {err2:.3e}, kernel {ms2:.4f} ms, "
@@ -267,17 +373,27 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
     # summation-order bound: ~count * 2^-24 of the sum of |terms|, which the
     # trace, sqrt(count * trace) and count bound for every column
     trace = S_p[:, 3] + S_p[:, 6] + S_p[:, 8]
-    bound = 1e-5 * (trace + torch.sqrt(S_p[:, 9] * trace) + S_p[:, 9]) + 1e-6
-    if bool(((S_k - S_p).abs() > bound[:, None]).any()):
+    tol = 1e-5 * (trace + torch.sqrt(S_p[:, 9] * trace) + S_p[:, 9]) + 1e-6
+    if bool(((S_k - S_p).abs() > tol[:, None]).any()):
         raise AssertionError(f"K3 {label}: moments max err {float((S_k - S_p).abs().max())}")
     err3 = float((S_k - S_p).abs().max())
     ms3 = cuda_ms(lambda: fk.survivor_moments(*k3_args, q_tile=1024, band=band), 10)
+    lim3 = bound(16 * starts.shape[0] + 12 * n_pad + 13 * nr_pad + 44 * n_pad,
+                 9.0 * n_pad * 2 * band + 19.0 * float(S_p[:, 9].sum()))
     plain3 = cuda_ms(lambda: fk.survivor_moments_reference(*k3_args, q_tile=1024,
                                                            band=band), 3)
     print(f"K3 survivor_moments {label}: {cap} rows, band {band}, {int(keep.sum())} "
           f"survivors, counts equal, max |moment err| {err3:.3e}, kernel {ms3:.4f} ms, "
           f"plain {plain3:.4f} ms")
-    return (err2, ms2, plain2), (err3, ms3, plain3)
+    return (err2, ms2, plain2, *lim2), (err3, ms3, plain3, *lim3)
+
+
+def record(name: str, source: str, replaces: str, results: list, timed: tuple) -> dict:
+    """A kernel's entry of the JSON line: the worst error over every checked
+    shape, and the times and bound of the main path's shape ``timed``."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max(r[0] for r in results), ms=timed[1], plain_ms=timed[2],
+                bound_ms=timed[3], bound_by=timed[4], library_ms=None)
 
 
 def phase_kernels(dev, clouds, gt) -> list[dict]:
@@ -318,10 +434,6 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
                                dist, band_f))
     k1.append(check_k1("gate", src, tgt, T, 2 * cfg.voxel_size, 2048))
 
-    def record(name, source, replaces, results, timed):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    max_abs_err=max(r[0] for r in results), ms=timed[1], plain_ms=timed[2])
-
     return [
         record("nn1_band", "pcr_tpu_torch/csrc/band_nn.cu",
                "pcr_tpu/ops/pallas/nn_kernels.py:92", k1, k1_gicp_finest),
@@ -332,39 +444,77 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
     ]
 
 
-def phase_slice(clouds, gt, init):
-    """Stage 2 over the circuit twice; returns the warm run's launch counts."""
-    import torch
+STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments")
+STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh")
 
-    from pcr_tpu_torch import pipeline
+
+def reset_launches() -> None:
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
     from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
-    counters = (nk.LAUNCHES, fk.LAUNCHES)
+    for counts in (nk.LAUNCHES, fk.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches() -> dict:
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    return {**nk.LAUNCHES, **fk.LAUNCHES}
+
+
+def check_launched(launches: dict, names, what: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by {what}")
+
+
+def check_pose_files(rel_dir: Path, out: np.ndarray) -> None:
+    """The circuit's pose_{k+1}_{k}.txt files hold the returned poses."""
+    if not np.isfinite(out).all() or out.shape != (N_SCANS, 4, 4):
+        raise AssertionError("non-finite or misshapen poses")
+    files = [rel_dir / f"pose_{k + 1}_{k}.txt" for k in range(N_SCANS - 1)]
+    files.append(rel_dir / f"pose_0_{N_SCANS - 1}.txt")
+    for k, f in enumerate(files):
+        if not np.allclose(np.loadtxt(f), out[k], atol=1e-8):
+            raise AssertionError(f"{f.name} does not hold pair {k}'s pose")
+
+
+def timed_runs(label: str, runs, fn):
+    """Run ``fn(run)`` for each run name with the launch counts set to 0
+    just before; prints wall, pairs/s and launches; returns the last run's
+    (result, launches)."""
+    import torch
+
+    for run in runs:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        print(f"{label} {run} run: {wall:.3f} s, {N_SCANS / wall:.3f} pairs/s, "
+              f"launches {launches}")
+    return out, launches
+
+
+def run_stage2(clouds, gt, init, label: str, runs) -> dict:
+    """Stage 2 over the circuit from ``init``; every pair within 3 cm /
+    0.2 deg, and K1-K3 launched by the last run.  Returns its launches."""
+    from pcr_tpu_torch import pipeline
+
     with tempfile.TemporaryDirectory() as tmp:
-        for run in ("cold", "warm"):
+        def one(run):
             cfg = stage2_config(str(Path(tmp) / run))
             metrics = pipeline.PairMetrics()
-            for c in counters:
-                for key in c:
-                    c[key] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             out = pipeline.run_stage2_mgicp(cfg, init_poses=init.copy(), clouds=clouds,
                                             n=N_SCANS, metrics=metrics)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k: v for c in counters for k, v in c.items()}
-            print(f"{run} run: {wall:.3f} s, {N_SCANS / wall:.3f} pairs/s, "
-                  f"launches {launches}")
-        if not np.isfinite(out).all() or out.shape != (N_SCANS, 4, 4):
-            raise AssertionError("non-finite or misshapen poses")
-        rel_dir = Path(cfg.out_dir("relative_poses_FGR_GICP"))
-        files = [rel_dir / f"pose_{k + 1}_{k}.txt" for k in range(N_SCANS - 1)]
-        files.append(rel_dir / f"pose_0_{N_SCANS - 1}.txt")
-        for k, f in enumerate(files):
-            if not np.allclose(np.loadtxt(f), out[k], atol=1e-8):
-                raise AssertionError(f"{f.name} does not hold pair {k}'s pose")
+            return cfg, metrics, out
+
+        (cfg, metrics, out), launches = timed_runs(label, runs, one)
+        check_pose_files(Path(cfg.out_dir("relative_poses_FGR_GICP")), out)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
         e_t, e_r = pose_error(out[k], gt[k])
@@ -376,12 +526,16 @@ def phase_slice(clouds, gt, init):
               f"gate fitness {row['gate_fitness']:.4f}")
         if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
             raise AssertionError(f"pair {k} off ground truth: {e_t} m, {e_r} deg")
-    print(f"worst pair error {worst[0] * 100:.3f} cm, {worst[1]:.4f} deg "
+    print(f"{label}: worst pair error {worst[0] * 100:.3f} cm, {worst[1]:.4f} deg "
           f"(limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg)")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
+    check_launched(launches, STAGE2_KERNELS, label)
     return launches
+
+
+def phase_slice(clouds, gt, init) -> dict:
+    """Stage 2 over the circuit twice from the real NCLT FGR errors; returns
+    the warm run's launch counts."""
+    return run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
 
 
 def phase_split(clouds, init) -> None:
@@ -405,6 +559,184 @@ def phase_split(clouds, init) -> None:
     print(f"split: scale caps {caps}; pyramids {t1 - t0:.3f} s for {N_SCANS} clouds "
           f"({(t1 - t0) / N_SCANS * 1e3:.1f} ms/cloud); GICP {t2 - t1:.3f} s for "
           f"{N_SCANS} pairs ({(t2 - t1) / N_SCANS * 1e3:.1f} ms/pair)")
+
+
+def check_k4_k6(label: str, c, voxel_size: float, bucket: int, band: int):
+    """K4, K5 and K6 against their plain versions on the tensors that
+    ``fgr_features_sorted(compact(c, bucket), voxel_size, band=band)`` hands
+    them (K5 fed the plain K4's normals, K6 the plain K5's output, so each
+    is compared on identical inputs); returns one (err, ms, plain ms, bound
+    ms, bound by) per kernel.
+
+    K4: neighbour counts equal (same d2 formula, same bisection) and moments
+    within K3's summation-order bound.  K5: tau bit-equal, hence the same
+    kept pairs; a row's histogram may differ from the plain version's only
+    by single pairs at a bin edge: each 11-bin block's L1 difference at most
+    twice the block's smallest nonzero bin (one pair moved), and in at most
+    1% of the rows.  K6: sums of <= 201 nonnegative terms in another order,
+    so within 2 * 201 * 2^-24 (2.4e-5) of the plain sum, relative."""
+    import torch
+
+    from pcr_tpu_torch.ops import preprocess
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+    from pcr_tpu_torch.utils import cloud
+    from pcr_tpu_torch.utils.cloud import pad_rows
+
+    qt = FEATURE_Q_TILE
+    cc = cloud.compact(c, bucket)
+    n = cc.capacity
+    _, ms_, p_q, p_r, starts = preprocess.sort_and_tile(cc.points, cc.mask, qt, band)
+    n_pad, nr_pad, n_tiles = p_q.shape[0], p_r.shape[0], starts.shape[0]
+
+    center = fk.slab_centroids(starts, p_r, band)
+    k4 = (starts, p_q, p_r, center, voxel_size)
+    S_k = fk.moments(*k4, q_tile=qt, band=band)
+    S_p = fk.moments_reference(*k4, q_tile=qt, band=band)
+    if not torch.equal(S_k[:, 9], S_p[:, 9]):
+        raise AssertionError(f"K4 {label}: neighbour counts differ")
+    trace = S_p[:, 3] + S_p[:, 6] + S_p[:, 8]
+    tol = 1e-5 * (trace + torch.sqrt(S_p[:, 9] * trace) + S_p[:, 9]) + 1e-6
+    if bool(((S_k - S_p).abs() > tol[:, None]).any()):
+        raise AssertionError(f"K4 {label}: moments max err {float((S_k - S_p).abs().max())}")
+    err4 = float((S_k - S_p).abs().max())
+    ms4 = cuda_ms(lambda: fk.moments(*k4, q_tile=qt, band=band), 10)
+    plain4 = cuda_ms(lambda: fk.moments_reference(*k4, q_tile=qt, band=band), 3)
+    lim4 = bound(16 * n_tiles + 12 * n_pad + 12 * nr_pad + 40 * n_pad,
+                 9.0 * n_pad * 2 * band + 19.0 * float(S_p[:, 9].sum()))
+    print(f"K4 moments {label}: {n_pad} rows, band {band}, counts equal, max |moment err| "
+          f"{err4:.3e}, kernel {ms4:.4f} ms, plain {plain4:.4f} ms, bound {lim4[0]:.4f} ms")
+
+    normals, _ = preprocess.normals_from_moments(S_p[:n], ms_)
+    k5 = (starts, p_q, pad_rows(normals, n_pad, 0.0).contiguous(), p_r,
+          pad_rows(normals, nr_pad, 0.0).contiguous(), voxel_size)
+    h_k, tau_k = fk.spfh(*k5, q_tile=qt, band=band)
+    h_p, tau_p = fk.spfh_reference(*k5, q_tile=qt, band=band)
+    if not torch.equal(tau_k, tau_p):
+        raise AssertionError(f"K5 {label}: tau differs at {int((tau_k != tau_p).sum())} rows")
+    blk_k, blk_p = h_k.view(-1, 3, 11), h_p.view(-1, 3, 11)
+    l1 = (blk_k - blk_p).abs().sum(-1)
+    min_nz = torch.where(blk_p > 0, blk_p, float("inf")).amin(-1)
+    rows_diff = int((l1 > 0).any(-1).sum())
+    if bool((l1 > 2.0 * min_nz * (1 + 1e-5)).any()) or rows_diff > 0.01 * n_pad:
+        raise AssertionError(f"K5 {label}: histograms differ beyond single bin-edge pairs "
+                             f"({rows_diff} rows, max block L1 {float(l1.max())})")
+    err5 = float((h_k - h_p).abs().max())
+    ms5 = cuda_ms(lambda: fk.spfh(*k5, q_tile=qt, band=band), 10)
+    plain5 = cuda_ms(lambda: fk.spfh_reference(*k5, q_tile=qt, band=band), 3)
+    lim5 = bound(4 * n_tiles + 24 * n_pad + 24 * nr_pad + 136 * n_pad,
+                 slab_work(starts, p_q, p_r, qt, band, 70.0, tau=tau_p, exclude_self=True))
+    print(f"K5 spfh {label}: {n_pad} rows, band {band}, tau equal, {rows_diff} rows with "
+          f"other bins, max |hist err| {err5:.3e}, kernel {ms5:.4f} ms, plain {plain5:.4f} ms, "
+          f"bound {lim5[0]:.4f} ms")
+
+    k6 = (starts, p_q, p_r, tau_p, pad_rows(h_p[:n], nr_pad, 0.0).contiguous())
+    a_k = fk.fpfh(*k6, q_tile=qt, band=band)
+    a_p = fk.fpfh_reference(*k6, q_tile=qt, band=band)
+    if bool(((a_k - a_p).abs() > 2.4e-5 * a_p.abs() + 1e-7).any()):
+        rel = float(((a_k - a_p).abs() / a_p.abs().clamp(min=1e-30)).max())
+        raise AssertionError(f"K6 {label}: sums differ, max relative {rel:.3e}")
+    err6 = float((a_k - a_p).abs().max())
+    ms6 = cuda_ms(lambda: fk.fpfh(*k6, q_tile=qt, band=band), 10)
+    plain6 = cuda_ms(lambda: fk.fpfh_reference(*k6, q_tile=qt, band=band), 3)
+    lim6 = bound(4 * n_tiles + 12 * n_pad + 12 * nr_pad + 4 * n_pad + 132 * nr_pad
+                 + 132 * n_pad,
+                 slab_work(starts, p_q, p_r, qt, band, 67.0, tau=tau_p, exclude_self=True))
+    print(f"K6 fpfh {label}: {n_pad} rows, band {band}, max |sum err| {err6:.3e} (max sum "
+          f"{float(a_p.max()):.3e}), kernel {ms6:.4f} ms, plain {plain6:.4f} ms, "
+          f"bound {lim6[0]:.4f} ms")
+    return ((err4, ms4, plain4, *lim4), (err5, ms5, plain5, *lim5),
+            (err6, ms6, plain6, *lim6))
+
+
+def phase_feature_kernels(clouds) -> list[dict]:
+    """K4-K6 at the stage-1 path's shape (scan 0 at its bucket, band 2048)
+    and at a smaller one (a 4096-row compaction of scan 0, band 1024); the
+    JSON record keeps the first shape's times."""
+    from pcr_tpu_torch.utils import cloud
+
+    c = clouds[0]
+    main = check_k4_k6("scan 0", c, 0.1, cloud.bucket_capacity(c, 4096), FEATURE_BAND)
+    small = check_k4_k6("4096 rows", c, 0.1, 4096, 1024)
+    src = "pcr_tpu_torch/csrc/fpfh.cu"
+    fk_py = "pcr_tpu/ops/pallas/feature_kernels.py"
+    return [record(name, src, f"{fk_py}:{line}", [a, b], a)
+            for name, line, a, b in zip(("moments", "spfh", "fpfh"), (158, 317, 402),
+                                        main, small)]
+
+
+def stage1_config(output_root: str):
+    """The reference's stage-1 defaults (banded features, band 2048)."""
+    from pcr_tpu_torch import pipeline
+
+    return pipeline.PipelineConfig(dataset="NCLT", batch_size=1, output_root=output_root)
+
+
+def phase_stage1(clouds, gt):
+    """Stage 1 over the circuit, cold and warm; every pair within 0.5 m /
+    5 deg.  Returns (poses, the warm run's launch counts)."""
+    from pcr_tpu_torch import pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def one(run):
+            cfg = stage1_config(str(Path(tmp) / run))
+            metrics = pipeline.PairMetrics()
+            out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
+            return cfg, metrics, out
+
+        (cfg, metrics, out), launches = timed_runs("stage 1", ("cold", "warm"), one)
+        check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
+    worst = 0.0, 0.0
+    for k, row in enumerate(metrics.rows):
+        e_t, e_r = pose_error(out[k], gt[k])
+        worst = max(worst[0], e_t), max(worst[1], e_r)
+        print(f"FGR pair ({row['src']},{row['tgt']}): {e_t * 100:.2f} cm {e_r:.3f} deg; "
+              f"fitness {row['fitness']:.4f}")
+        if not (e_t < MAX_FGR_T_ERR_M and e_r < MAX_FGR_R_ERR_DEG):
+            raise AssertionError(f"FGR pair {k} off ground truth: {e_t} m, {e_r} deg")
+    print(f"stage 1: worst pair error {worst[0] * 100:.2f} cm, {worst[1]:.3f} deg "
+          f"(limits {MAX_FGR_T_ERR_M * 100:g} cm, {MAX_FGR_R_ERR_DEG} deg)")
+    check_launched(launches, STAGE1_KERNELS, "stage 1")
+    return out, launches
+
+
+def phase_stage1_split(clouds) -> None:
+    """Warm stage-1 time split into features per scan and, per pair,
+    matching, tuple test, GNC and evaluation (a synchronize after each)."""
+    import torch
+
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models import evaluate, fgr
+    from pcr_tpu_torch.utils import cloud
+
+    cfg = stage1_config("unused")
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = clock()
+    feats = [pipeline._prep_features(c, cloud.bucket_capacity(c, cfg.bucket_granularity),
+                                     cfg.voxel_size, cfg.stage1_band) for c in clouds]
+    t_feat = clock() - t0
+    split = np.zeros(4)
+    for s, t in pipeline.circuit_pairs(N_SCANS):
+        B = max(feats[s][0].capacity, feats[t][0].capacity)
+        src, fs, tgt, ft = pipeline._pad_pair(*feats[s], *feats[t], B)
+        opts = fgr.default_options_capacity(B, cfg.voxel_size)
+        t0 = clock()
+        ci, cj, cm = fgr.match_features(fs, src.mask, ft, tgt.mask)
+        t1 = clock()
+        cm = fgr.tuple_test(src.points, tgt.points, ci, cj, cm, cfg.fgr_seed + s,
+                            max_tuples=opts.maximum_tuple_count)
+        t2 = clock()
+        T = fgr.fgr_from_correspondences(src, tgt, ci, cj, cm, opts)
+        t3 = clock()
+        evaluate.evaluate_registration(src, tgt, opts.maximum_correspondence_distance, T)
+        split += np.array([t1 - t0, t2 - t1, t3 - t2, clock() - t3])
+    ms = split / N_SCANS * 1e3
+    print(f"stage-1 split: features {t_feat / N_SCANS * 1e3:.1f} ms/scan; per pair: matching "
+          f"{ms[0]:.1f} ms, tuple test {ms[1]:.1f} ms, GNC {ms[2]:.1f} ms, evaluation "
+          f"{ms[3]:.1f} ms ({ms.sum():.1f} ms/pair)")
 
 
 def main() -> int:
@@ -431,10 +763,14 @@ def main() -> int:
     clouds = [cloud.from_numpy(s, CAPACITY, device=dev) for s in scans]
     print("scan valid points:", [len(s) for s in scans])
     records = phase_kernels(dev, clouds, gt)
-    launches = phase_slice(clouds, gt, init)
+    launches2 = phase_slice(clouds, gt, init)
     phase_split(clouds, init)
+    records += phase_feature_kernels(clouds)
+    rel1, launches1 = phase_stage1(clouds, gt)
+    run_stage2(clouds, gt, rel1, "stage 1 -> 2", ("seeded by stage 1",))
+    phase_stage1_split(clouds)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = (launches2 if rec["name"] in STAGE2_KERNELS else launches1)[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,13 +21,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
-constexpr int kBisectSteps = 10;
-
-__device__ __forceinline__ int tile_start(const int* starts, int q_tile) {
-  // q_tile is a multiple of blockDim.x, so a block never straddles tiles.
-  return starts[(blockIdx.x * blockDim.x) / q_tile];
-}
+using pcr::kBisectSteps;
+using pcr::launch_threads;
+using pcr::reserve_smem;
+using pcr::tile_start;
 
 __global__ void outlier_stats_kernel(const int* __restrict__ starts,
                                      const float* __restrict__ q,
@@ -42,33 +39,13 @@ __global__ void outlier_stats_kernel(const int* __restrict__ starts,
   float* sy = smem + slab;
   float* sz = smem + 2 * slab;
   const int start = tile_start(starts, q_tile);
-  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
-    const float* rp = r + 3 * static_cast<size_t>(start + j);
-    sx[j] = rp[0];
-    sy[j] = rp[1];
-    sz[j] = rp[2];
-  }
+  pcr::stage_slab(r, 3, start, slab, smem);
   __syncthreads();
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
 
   // log-space count-CDF bisection for the k1-th nearest (self included)
-  float llo = log_lo, lhi = log_hi;
-  for (int s = 0; s < kBisectSteps; ++s) {
-    const float lmid = __fmul_rn(0.5f, __fadd_rn(llo, lhi));
-    const float t = expf(lmid);
-    int c = 0;
-    for (int k = 0; k < slab && c < k1; ++k) {
-      const float d = pcr::sqdist(qx, qy, qz, sx[k], sy[k], sz[k]);
-      c += (d < pcr::kRealD2Max) & (d <= t);
-    }
-    if (c >= k1) {
-      lhi = lmid;
-    } else {
-      llo = lmid;
-    }
-  }
-  const float tau = expf(lhi);
+  const float tau = pcr::log_bisect_tau(qx, qy, qz, sx, sy, sz, slab, k1, log_lo, log_hi);
   int cnt = 0;
   float sum_d = 0.0f;
   for (int k = 0; k < slab; ++k) {
@@ -98,11 +75,8 @@ __global__ void survivor_moments_kernel(const int* __restrict__ starts,
   float* sz = smem + 2 * slab;
   float* sk = smem + 3 * slab;
   const int start = tile_start(starts, q_tile);
+  pcr::stage_slab(r, 3, start, slab, smem);
   for (int j = threadIdx.x; j < slab; j += blockDim.x) {
-    const float* rp = r + 3 * static_cast<size_t>(start + j);
-    sx[j] = rp[0];
-    sy[j] = rp[1];
-    sz[j] = rp[2];
     sk[j] = keep[start + j] ? 1.0f : 0.0f;
   }
   __syncthreads();
@@ -154,17 +128,6 @@ __global__ void survivor_moments_kernel(const int* __restrict__ starts,
   }
 #pragma unroll
   for (int f = 0; f < 10; ++f) out[10 * static_cast<size_t>(qi) + f] = acc[f];
-}
-
-int launch_threads(int q_tile) {
-  return q_tile < kMaxThreads ? q_tile : kMaxThreads;
-}
-
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 }  // namespace

@@ -1,0 +1,188 @@
+"""Fast Global Registration (port of pcr_tpu/models/fgr.py): mutual feature
+matching, the seeded tuple test and graduated non-convexity.
+
+The options are those of the reference's script 1: division_factor=1.4,
+use_absolute_scale=False, decrease_mu=True, maximum_correspondence_distance
+=2*voxel, iteration_number=300, tuple_scale=0.95, maximum_tuple_count
+=0.2*n.
+
+  1. mutual nearest neighbours over the 33-dim FPFH features
+     (``ops/knn.nn1_mutual``);
+  2. tuple test: seeded random triples of correspondences, kept when all
+     three point-pair length ratios lie in [tuple_scale, 1/tuple_scale],
+     capped at maximum_tuple_count accepted triples;
+  3. GNC on the scaled Geman-McClure: line-process weight
+     l = (mu / (mu + ||r||^2))^2, mu divided by division_factor every 4
+     iterations until it reaches max_corr_dist^2, one weighted point-to-point
+     Gauss-Newton step on se(3) per iteration.
+
+The tuple test draws its uniforms from a ``torch.Generator``, which cannot
+replay ``jax.random``'s stream: the two packages agree on a pose
+statistically, or exactly when handed the same draws (``u``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import knn as knn_ops
+from ..utils import se3
+from ..utils.cloud import Cloud
+from . import evaluate as eval_mod
+from .gicp import RegistrationResult, solve6_cholesky
+
+
+class FgrOptions(NamedTuple):
+    division_factor: float = 1.4
+    use_absolute_scale: bool = False
+    decrease_mu: bool = True
+    maximum_correspondence_distance: float = 0.2
+    iteration_number: int = 300
+    tuple_scale: float = 0.95
+    maximum_tuple_count: int = 1000
+    tuple_test: bool = True
+
+
+def match_features(feat_src, src_mask, feat_tgt, tgt_mask):
+    """Mutual nearest neighbours in feature space.  Returns (corr_src_idx,
+    corr_tgt_idx, corr_mask), each (N,) over the source capacity N: pair i is
+    (i, nn_tgt[i]), kept when mutual."""
+    ij, ji = knn_ops.nn1_mutual(feat_src, src_mask, feat_tgt, tgt_mask)
+    n = feat_src.shape[0]
+    ar = torch.arange(n, device=feat_src.device)
+    return ar, ij, (ji[ij] == ar) & src_mask
+
+
+def _norm3(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def tuple_test(pts_src, pts_tgt, corr_i, corr_j, corr_mask, seed: int,
+               tuple_scale: float = 0.95, max_tuples: int = 4096,
+               n_trials: int = 16384, u: torch.Tensor | None = None):
+    """Seeded, fixed-shape tuple constraint: a per-correspondence keep mask
+    (a correspondence survives if it appears in any accepted triple).
+
+    ``u``: optional (n_trials, 3) uniforms on [0, 1) to use instead of the
+    draws of a ``torch.Generator`` seeded with ``seed``."""
+    n = corr_i.shape[0]
+    dev = corr_i.device
+    # valid correspondence slots first, for uniform sampling over them
+    order = torch.argsort((~corr_mask).to(torch.uint8), stable=True)
+    n_valid = torch.sum(corr_mask.to(torch.int32))
+    if u is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        u = torch.rand((n_trials, 3), generator=gen, device=dev)
+    pos = torch.minimum((u * n_valid).to(torch.int32), torch.clamp(n_valid - 1, min=0))
+    slots = order[pos.long()]                              # (n_trials, 3)
+    pa = pts_src[corr_i[slots]]                            # (n_trials, 3, 3)
+    qa = pts_tgt[corr_j[slots]]
+
+    def edge_ok(a, b):
+        r = _norm3(pa[:, a] - pa[:, b]) / torch.clamp(_norm3(qa[:, a] - qa[:, b]), min=1e-12)
+        return (r > tuple_scale) & (r < 1.0 / tuple_scale)
+
+    ok = edge_ok(0, 1) & edge_ok(1, 2) & edge_ok(2, 0) & (n_valid >= 3)
+    # cap accepted tuples at max_tuples (first-come order, like the reference)
+    ok_i = ok.to(torch.int32)
+    ok = ok & (torch.cumsum(ok_i, dim=0) - ok_i < max_tuples)
+    # mark the slots of accepted tuples; the others write to a spare last
+    # entry.  Every write is True, so their order does not matter.
+    flat = torch.where(ok[:, None], slots, n).reshape(-1)
+    keep = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    keep[flat] = True
+    return keep[:n] & corr_mask
+
+
+def _center_radius(pts: torch.Tensor, mask: torch.Tensor):
+    w = mask.to(torch.float32)[:, None]
+    c = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
+    return c, torch.amax(torch.where(mask, _norm3(pts - c), 0.0))
+
+
+def fgr_from_correspondences(source: Cloud, target: Cloud, corr_i, corr_j, corr_mask,
+                             opts: FgrOptions) -> torch.Tensor:
+    """GNC over fixed correspondences; returns the (4, 4) f32 pose.  A Python
+    loop of ``iteration_number`` steps that never reads the device."""
+    dev = source.device
+    p_all = source.points[corr_i]
+    q_all = target.points[corr_j]
+    w_corr = corr_mask.to(torch.float32)
+    if opts.use_absolute_scale:
+        scale = torch.ones((), dtype=torch.float32, device=dev)
+        c_src = c_tgt = torch.zeros(3, dtype=torch.float32, device=dev)
+    else:
+        c_src, r_src = _center_radius(source.points, source.mask)
+        c_tgt, r_tgt = _center_radius(target.points, target.mask)
+        scale = torch.clamp(torch.maximum(r_src, r_tgt), min=1e-6)
+    p = (p_all - c_src) / scale
+    q = (q_all - c_tgt) / scale
+    delta = opts.maximum_correspondence_distance / scale    # normalized stop scale
+    enough = torch.sum(w_corr) >= 3
+
+    # mu starts at the (normalized) global scale squared = 1 in relative-scale
+    # mode; in absolute-scale mode at a proxy of the squared extent
+    mu = torch.full((), 1.0 if not opts.use_absolute_scale
+                    else opts.maximum_correspondence_distance ** 2 * 1e4,
+                    dtype=torch.float32, device=dev)
+    T = torch.eye(4, dtype=torch.float32, device=dev)
+    minus_eye = (-torch.eye(3, dtype=torch.float32, device=dev)).expand(p.shape[0], 3, 3)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    for it in range(opts.iteration_number):
+        if opts.decrease_mu and it % 4 == 0:
+            mu = torch.where(mu > delta * delta, mu / opts.division_factor, mu)
+        pt = se3.transform_points(T, p)
+        r = q - pt
+        l = torch.square(mu / (mu + torch.sum(r * r, dim=-1))) * w_corr
+        G = torch.cat([se3.skew(pt), minus_eye], dim=-1)   # (N, 3, 6)
+        lG = G * l[:, None, None]
+        H = torch.einsum("nij,nik->jk", lG, G)
+        g = torch.einsum("nij,ni->j", lG, r)
+        H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * eye6
+        xi = torch.where(enough, -solve6_cholesky(H, g), 0.0)
+        T = se3.compose(se3.se3_exp(xi), T)
+    # denormalize: q = s*(R p_hat + t_hat) + c_tgt with p_hat = (p - c_src)/s
+    R = se3.rot(T)
+    return se3.make_pose(R, scale * se3.trans(T) + c_tgt - R @ c_src)
+
+
+def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
+                     seed: int = 0, n_trials: int = 16384,
+                     max_tuples: int | None = None) -> RegistrationResult:
+    """Full FGR: mutual matching -> tuple test -> GNC -> evaluation
+    (``models/evaluate.evaluate_registration``, kernel K1).  ``max_tuples``
+    overrides ``opts.maximum_tuple_count``."""
+    corr_i, corr_j, corr_mask = match_features(feat_src, source.mask, feat_tgt, target.mask)
+    if opts.tuple_test:
+        corr_mask = tuple_test(
+            source.points, target.points, corr_i, corr_j, corr_mask, seed,
+            tuple_scale=opts.tuple_scale,
+            max_tuples=opts.maximum_tuple_count if max_tuples is None else max_tuples,
+            n_trials=n_trials)
+    T = fgr_from_correspondences(source, target, corr_i, corr_j, corr_mask, opts)
+    fitness, rmse, n_corr = eval_mod.evaluate_registration(
+        source, target, opts.maximum_correspondence_distance, T)
+    return RegistrationResult(T, fitness, rmse, n_corr,
+                              torch.full((), opts.iteration_number, dtype=torch.int32,
+                                         device=source.device))
+
+
+def default_options(source: Cloud, target: Cloud, voxel_size: float,
+                    use_absolute_scale: bool = False) -> FgrOptions:
+    """The script-1 option set, from the two clouds' capacities."""
+    n_pts = (int(source.capacity) + int(target.capacity)) // 2   # static proxy
+    return default_options_capacity(n_pts, voxel_size, use_absolute_scale)
+
+
+def default_options_capacity(n_pts: int, voxel_size: float,
+                             use_absolute_scale: bool = False) -> FgrOptions:
+    """``default_options`` from a capacity alone."""
+    return FgrOptions(
+        use_absolute_scale=use_absolute_scale,
+        maximum_correspondence_distance=2 * voxel_size,
+        iteration_number=300,
+        maximum_tuple_count=max(int(0.2 * n_pts), 256),
+    )

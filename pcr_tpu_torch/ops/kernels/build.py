@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``pcr_tpu_torch/csrc``).
 
-The sources have a plain C interface; ``nvcc`` compiles them for ``sm_90a``
-into one shared library, loaded with ctypes.  The build happens on first use,
+The sources have a plain C interface; ``nvcc`` compiles each for ``sm_90a``
+(all at once, one process a source) and links them into one shared library,
+loaded with ctypes.  The build happens on first use,
 into ``build/pcr_tpu_torch/<hash of flags and sources>/`` beside the package,
 so a checkout builds everything it needs and a changed source never loads a
 stale library.  Nothing here runs at import time.
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "pcr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 LIB_NAME = "libpcr_tpu_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -32,6 +33,9 @@ SIGNATURES = {
     "pcr_nn1_band": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "pcr_outlier_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "pcr_survivor_moments": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pcr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
+    "pcr_spfh": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
+    "pcr_fpfh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -66,12 +70,27 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{src.stem}.{os.getpid()}.o") for src in sources]  # nvcc reads .o
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    failed = []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 

@@ -58,6 +58,14 @@ def sqdist_tiles(q: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def tile_groups(n_tiles: int, tile_elems: int, budget: int = 1 << 22) -> list[slice]:
+    """Consecutive groups of tiles whose (tiles, q_tile, slab) temporaries
+    hold about ``budget`` elements: the plain versions loop over these rather
+    than materialise every tile's pair temporaries at once."""
+    step = max(1, budget // max(tile_elems, 1))
+    return [slice(g, min(g + step, n_tiles)) for g in range(0, n_tiles, step)]
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,5 +1,6 @@
 """K2 and K3 — the preprocess neighbourhood passes (CUDA source:
-``pcr_tpu_torch/csrc/preprocess.cu``).
+``pcr_tpu_torch/csrc/preprocess.cu``) — and K4-K6, the stage-1 feature
+passes (CUDA source: ``pcr_tpu_torch/csrc/fpfh.cu``).
 
 K2 ``outlier_stats`` replaces
 ``pcr_tpu/ops/pallas/feature_kernels.py:outlier_stats_pallas``: per sorted
@@ -20,6 +21,28 @@ in every step from the slab, which the block holds in shared memory.  The
 plain versions below follow the XLA ``spacing_hint`` branch of
 ``pcr_tpu/ops/preprocess._outlier_and_normals_sorted`` and share the
 kernels' slabs and d2 formula, so the two differ only in summation order.
+
+K4 ``moments`` replaces ``feature_kernels.py:moments_pallas``: a 10-step
+log-space bisection on [0.05v, 2v] for the normal_k-th nearest slab row (self
+included), then the moments of that Hybrid(2v, normal_k) set, centred on the
+tile's slab centroid.
+
+K5 ``spfh`` replaces ``feature_kernels.py:spfh_pallas``: a log bisection on
+[0.05v, 10v] for the (max_nn+1)-th nearest, tau = min(that, (10v)^2); over
+the kept pairs (real, d2 <= tau, d2 > 0, not the query's own slab column) the
+Darboux features f1, f2, f3 and three 11-bin histograms scaled by 100/count.
+f3 is binned with atan2 and floor, as the XLA path of
+``pcr_tpu/ops/fpfh_sorted`` does (the Pallas kernel's atan2-free binning
+exists because Mosaic has no atan2).
+
+K6 ``fpfh`` replaces ``feature_kernels.py:fpfh_pallas``: over K5's kept pairs,
+the sum of (1/max(d2, 1e-12)) * spfh[row]; the caller normalises the blocks
+and adds the query's own SPFH.
+
+The plain versions of K4-K6 follow the XLA path of ``fgr_features_sorted``
+(the same tiles and slabs, d2 by ``common.sqdist_tiles``) over groups of
+tiles, and evaluate every operation the kernels evaluate in the same order,
+so bins and tau agree exactly; only K4's and K6's sums differ in order.
 """
 
 from __future__ import annotations
@@ -31,15 +54,36 @@ import torch
 
 from . import build, common
 
-LAUNCHES = {"outlier_stats": 0, "survivor_moments": 0}
+LAUNCHES = {"outlier_stats": 0, "survivor_moments": 0, "moments": 0, "spfh": 0,
+            "fpfh": 0}
 BISECT_STEPS = 10
+N_BINS = 11
+FEATURE_DIM = 33
 
 
-def _log_bounds(spacing_hint: float) -> tuple[float, float]:
-    """f32 log-space bisection bounds 2*log(0.05h), 2*log(100h)."""
-    h = float(spacing_hint)
-    return (float(np.float32(2.0 * math.log(0.05 * h))),
-            float(np.float32(2.0 * math.log(100.0 * h))))
+def _f32(x: float) -> float:
+    """x rounded to float32 (a host float, so the kernels and the plain
+    versions get the same constant)."""
+    return float(np.float32(x))
+
+
+def _log_bounds(scale: float, lo_mult: float, hi_mult: float) -> tuple[float, float]:
+    """f32 log-space bisection bounds 2*log(lo_mult*scale), 2*log(hi_mult*scale)."""
+    s = float(scale)
+    return _f32(2.0 * math.log(lo_mult * s)), _f32(2.0 * math.log(hi_mult * s))
+
+
+def _log_bisect(d2, real, k: int, lo: float, hi: float):
+    """Plain log-space count-CDF bisection (the kernels' ``log_bisect_tau``):
+    per row of d2 (..., S), tau = exp(lhi) after BISECT_STEPS halvings."""
+    llo = torch.full(d2.shape[:-1], lo, dtype=torch.float32, device=d2.device)
+    lhi = torch.full(d2.shape[:-1], hi, dtype=torch.float32, device=d2.device)
+    for _ in range(BISECT_STEPS):
+        lmid = 0.5 * (llo + lhi)
+        geq = torch.sum(real & (d2 <= torch.exp(lmid)[..., None]), dim=-1) >= k
+        llo = torch.where(geq, llo, lmid)
+        lhi = torch.where(geq, lmid, lhi)
+    return torch.exp(lhi)
 
 
 def outlier_stats_reference(starts_el, q, r, spacing_hint, *, q_tile: int,
@@ -48,15 +92,7 @@ def outlier_stats_reference(starts_el, q, r, spacing_hint, *, q_tile: int,
     n_tiles = starts_el.shape[0]
     d2 = common.sqdist_tiles(q.view(n_tiles, q_tile, 3), common.slabs(starts_el, r, band))
     real = d2 < common.REAL_D2_MAX
-    lo, hi = _log_bounds(spacing_hint)
-    llo = torch.full(d2.shape[:-1], lo, dtype=torch.float32, device=q.device)
-    lhi = torch.full(d2.shape[:-1], hi, dtype=torch.float32, device=q.device)
-    for _ in range(BISECT_STEPS):
-        lmid = 0.5 * (llo + lhi)
-        geq = torch.sum(real & (d2 <= torch.exp(lmid)[..., None]), dim=-1) >= k1
-        llo = torch.where(geq, llo, lmid)
-        lhi = torch.where(geq, lmid, lhi)
-    tau = torch.exp(lhi)
+    tau = _log_bisect(d2, real, k1, *_log_bounds(spacing_hint, 0.05, 100.0))
     w = real & (d2 <= tau[..., None])
     cnt = torch.sum(w, dim=-1)                                   # includes self
     sum_d = torch.sum(torch.where(w, torch.sqrt(torch.clamp(d2, min=0.0)), 0.0), dim=-1)
@@ -84,7 +120,7 @@ def outlier_stats(starts_el, q, r, spacing_hint, *, q_tile: int, band: int,
     mean_d = torch.empty(n_pad, dtype=torch.float32, device=q.device)
     found = torch.empty(n_pad, dtype=torch.bool, device=q.device)
     tau = torch.empty(n_pad, dtype=torch.float32, device=q.device)
-    lo, hi = _log_bounds(spacing_hint)
+    lo, hi = _log_bounds(spacing_hint, 0.05, 100.0)
     lib = build.library()
     with torch.cuda.device(q.device):
         err = lib.pcr_outlier_stats(
@@ -105,6 +141,15 @@ def slab_centroids(starts_el: torch.Tensor, r: torch.Tensor, band: int) -> torch
     return total / torch.clamp(torch.sum(real, dim=1), min=1)[:, None]
 
 
+def _moment_features(s: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """(T, 2B, 10) rows [x y z | xx xy xz yy yz zz | 1] of the slabs s
+    (T, 2B, 3), centred on each tile's ``center`` (T, 3)."""
+    bc = s - center[:, None, :]
+    x, y, z = bc[..., 0], bc[..., 1], bc[..., 2]
+    return torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
+                        torch.ones_like(x)], dim=-1)
+
+
 def survivor_moments_reference(starts_el, q, r, keep, tau_out, center, *,
                                q_tile: int, band: int, normal_k: int = 20):
     """Plain PyTorch version of K3: (n_pad, 10) f32 moments."""
@@ -123,11 +168,7 @@ def survivor_moments_reference(starts_el, q, r, keep, tau_out, center, *,
         lo = torch.where(geq, lo, mid)
         hi = torch.where(geq, mid, hi)
     w = (keep_real & (d2 <= hi[..., None])).to(torch.float32)
-    bc = s - center[:, None, :]                                  # (T, 2B, 3)
-    x, y, z = bc[..., 0], bc[..., 1], bc[..., 2]
-    feats = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
-                         torch.ones_like(x)], dim=-1)            # (T, 2B, 10)
-    return torch.bmm(w, feats).reshape(n_tiles * q_tile, 10)
+    return torch.bmm(w, _moment_features(s, center)).reshape(n_tiles * q_tile, 10)
 
 
 def survivor_moments(starts_el, q, r, keep, tau_out, center, *, q_tile: int,
@@ -161,4 +202,226 @@ def survivor_moments(starts_el, q, r, keep, tau_out, center, *, q_tile: int,
             normal_k, out.data_ptr(), common.stream_of(q))
     build.check_launch("survivor_moments", err)
     LAUNCHES["survivor_moments"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: the stage-1 feature passes
+# ---------------------------------------------------------------------------
+
+def _bin_constants() -> tuple[float, float, float]:
+    """(lo of f3, bins per unit of f1/f2, bins per unit of f3) as float32:
+    bin = floor((f - lo) * scale), f1/f2 on [-1, 1], f3 on [-pi, pi]."""
+    return _f32(-math.pi), _f32(N_BINS / 2.0), _f32(N_BINS / (2.0 * math.pi))
+
+
+def _radius2(voxel_size: float) -> float:
+    """(10v)^2 as float32 arithmetic gives it."""
+    r = np.float32(10.0) * np.float32(voxel_size)
+    return float(r * r)
+
+
+def pair_keep(d2, tau, starts_el, q_tile: int, band: int, first_tile: int = 0):
+    """K5's and K6's kept pairs of a group of tiles: real slab rows at
+    d2 <= tau with d2 > 0, off the query's own slab column.  d2 (G, TQ, 2B)
+    of tiles first_tile.., tau (G, TQ), starts_el (G,) their slab starts."""
+    g = starts_el.shape[0]
+    rows = (first_tile * q_tile
+            + torch.arange(g * q_tile, device=d2.device).view(g, q_tile))
+    self_col = rows - starts_el.long()[:, None]
+    col = torch.arange(2 * band, device=d2.device)
+    return ((d2 < common.REAL_D2_MAX) & (d2 <= tau[..., None]) & (d2 > 0.0)
+            & (col != self_col[..., None]))
+
+
+def moments_reference(starts_el, q, r, center, voxel_size, *, q_tile: int,
+                      band: int, normal_k: int = 20):
+    """Plain PyTorch version of K4: (n_pad, 10) f32 moments."""
+    n_tiles = starts_el.shape[0]
+    lo, hi = _log_bounds(voxel_size, 0.05, 2.0)
+    q_t = q.view(n_tiles, q_tile, 3)
+    out = []
+    for g in common.tile_groups(n_tiles, q_tile * 2 * band):
+        s = common.slabs(starts_el[g], r, band)
+        d2 = common.sqdist_tiles(q_t[g], s)
+        real = d2 < common.REAL_D2_MAX
+        tau = _log_bisect(d2, real, normal_k, lo, hi)
+        w = (real & (d2 <= tau[..., None])).to(torch.float32)
+        out.append(torch.bmm(w, _moment_features(s, center[g])))
+    return torch.cat(out).reshape(n_tiles * q_tile, 10)
+
+
+def moments(starts_el, q, r, center, voxel_size, *, q_tile: int, band: int,
+            normal_k: int = 20):
+    """Hybrid(2*voxel, normal_k) neighbourhood moments of every sorted query.
+
+    starts_el: (n_tiles,) int32 slab starts; q: (n_tiles*q_tile, 3) f32;
+    r: (nr_pad, 3) f32; center: (n_tiles, 3) f32 from ``slab_centroids``.
+    Returns (n_pad, 10) f32.  CPU tensors run the plain version; CUDA tensors
+    the kernel.
+    """
+    n_tiles = starts_el.shape[0]
+    nr_pad = r.shape[0]
+    common.check_tiling(q.shape[0], q_tile, n_tiles, band, nr_pad)
+    if not common.on_cuda(starts_el, q, r, center):
+        return moments_reference(starts_el, q, r, center, voxel_size, q_tile=q_tile,
+                                 band=band, normal_k=normal_k)
+    n_pad = n_tiles * q_tile
+    common.check(starts_el, "starts_el", torch.int32, (n_tiles,))
+    common.check(q, "q", torch.float32, (n_pad, 3))
+    common.check(r, "r", torch.float32, (nr_pad, 3))
+    common.check(center, "center", torch.float32, (n_tiles, 3))
+    out = torch.empty((n_pad, 10), dtype=torch.float32, device=q.device)
+    lo, hi = _log_bounds(voxel_size, 0.05, 2.0)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.pcr_moments(
+            starts_el.data_ptr(), q.data_ptr(), r.data_ptr(), center.data_ptr(), n_pad,
+            q_tile, band, normal_k, lo, hi, out.data_ptr(), common.stream_of(q))
+    build.check_launch("moments", err)
+    LAUNCHES["moments"] += 1
+    return out
+
+
+def _pair_features_tile(q, nq, b, nb, d2):
+    """Darboux pair features (f1, f2, f3), each (T, TQ, 2B), between query
+    tiles q, nq (T, TQ, 3) and their slabs b, nb (T, 2B, 3) at squared
+    distances d2 — Open3D's ComputePairFeatures with the source/target swap,
+    as ``pcr_tpu/ops/fpfh_sorted._pair_features_tile`` computes it, written
+    one operation at a time in the order of the kernel's ``pair_features``."""
+    def dot(a, c):
+        return a[0] * c[0] + a[1] * c[1] + a[2] * c[2]
+
+    def cross(a, c):
+        return (a[1] * c[2] - a[2] * c[1], a[2] * c[0] - a[0] * c[2],
+                a[0] * c[1] - a[1] * c[0])
+
+    dist = torch.clamp(torch.sqrt(d2), min=1e-12)
+    dn = [(b[:, None, :, k] - q[:, :, None, k]) / dist for k in range(3)]
+    n1 = [nq[:, :, None, k] for k in range(3)]
+    n2 = [nb[:, None, :, k] for k in range(3)]
+    swap = dot(n2, dn).abs() > dot(n1, dn).abs()
+    u = [torch.where(swap, y, x) for x, y in zip(n1, n2)]
+    nt = [torch.where(swap, x, y) for x, y in zip(n1, n2)]
+    e = [torch.where(swap, -d, d) for d in dn]
+    f2 = dot(u, e)
+    v = cross(e, u)
+    vn = torch.clamp(torch.sqrt(dot(v, v)), min=1e-12)
+    v = [c / vn for c in v]
+    w = cross(u, v)
+    return dot(v, nt), f2, torch.atan2(dot(w, nt), dot(u, nt))
+
+
+def _bin_counts(f, keep, lo: float, scale: float):
+    """(..., S) features -> (..., 11) counts of the kept pairs in each bin."""
+    bins = torch.clamp(torch.floor((f - lo) * scale).to(torch.int64), 0, N_BINS - 1)
+    return torch.stack([torch.sum(keep & (bins == b), dim=-1) for b in range(N_BINS)],
+                       dim=-1)
+
+
+def spfh_reference(starts_el, q, nq, r, nr, voxel_size, *, q_tile: int, band: int,
+                   max_nn: int = 200):
+    """Plain PyTorch version of K5: (spfh (n_pad, 33) f32, tau (n_pad,) f32)."""
+    n_tiles = starts_el.shape[0]
+    lo, hi = _log_bounds(voxel_size, 0.05, 10.0)
+    radius2 = _radius2(voxel_size)
+    lo3, scale12, scale3 = _bin_constants()
+    q_t, nq_t = q.view(n_tiles, q_tile, 3), nq.view(n_tiles, q_tile, 3)
+    hists, taus = [], []
+    for g in common.tile_groups(n_tiles, q_tile * 2 * band):
+        st = starts_el[g]
+        b, nb = common.slabs(st, r, band), common.slabs(st, nr, band)
+        d2 = common.sqdist_tiles(q_t[g], b)
+        tau = torch.clamp(_log_bisect(d2, d2 < common.REAL_D2_MAX, max_nn + 1, lo, hi),
+                          max=radius2)
+        keep = pair_keep(d2, tau, st, q_tile, band, g.start)
+        f1, f2, f3 = _pair_features_tile(q_t[g], nq_t[g], b, nb, d2)
+        counts = torch.cat([_bin_counts(f1, keep, -1.0, scale12),
+                            _bin_counts(f2, keep, -1.0, scale12),
+                            _bin_counts(f3, keep, lo3, scale3)], dim=-1)
+        cnt = torch.sum(keep, dim=-1).to(torch.float32)
+        incr = torch.where(cnt > 0, torch.full_like(cnt, 100.0) / torch.clamp(cnt, min=1.0),
+                           0.0)
+        hists.append(counts.to(torch.float32) * incr[..., None])
+        taus.append(tau)
+    return (torch.cat(hists).reshape(n_tiles * q_tile, FEATURE_DIM),
+            torch.cat(taus).reshape(n_tiles * q_tile))
+
+
+def spfh(starts_el, q, nq, r, nr, voxel_size, *, q_tile: int, band: int,
+         max_nn: int = 200):
+    """SPFH histograms of every sorted query over its Hybrid(10*voxel, max_nn)
+    slab neighbourhood (self excluded).
+
+    q, nq: (n_pad, 3) f32 points and unit normals; r, nr: (nr_pad, 3) f32.
+    Returns (spfh (n_pad, 33) f32, tau (n_pad,) f32).  CPU tensors run the
+    plain version; CUDA tensors the kernel.
+    """
+    n_tiles = starts_el.shape[0]
+    nr_pad = r.shape[0]
+    common.check_tiling(q.shape[0], q_tile, n_tiles, band, nr_pad)
+    if not common.on_cuda(starts_el, q, nq, r, nr):
+        return spfh_reference(starts_el, q, nq, r, nr, voxel_size, q_tile=q_tile,
+                              band=band, max_nn=max_nn)
+    n_pad = n_tiles * q_tile
+    common.check(starts_el, "starts_el", torch.int32, (n_tiles,))
+    for t, name in ((q, "q"), (nq, "nq")):
+        common.check(t, name, torch.float32, (n_pad, 3))
+    for t, name in ((r, "r"), (nr, "nr")):
+        common.check(t, name, torch.float32, (nr_pad, 3))
+    hist = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
+    tau = torch.empty(n_pad, dtype=torch.float32, device=q.device)
+    lo, hi = _log_bounds(voxel_size, 0.05, 10.0)
+    lo3, scale12, scale3 = _bin_constants()
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.pcr_spfh(
+            starts_el.data_ptr(), q.data_ptr(), nq.data_ptr(), r.data_ptr(), nr.data_ptr(),
+            n_pad, q_tile, band, max_nn + 1, lo, hi, _radius2(voxel_size), lo3, scale12,
+            scale3, hist.data_ptr(), tau.data_ptr(), common.stream_of(q))
+    build.check_launch("spfh", err)
+    LAUNCHES["spfh"] += 1
+    return hist, tau
+
+
+def fpfh_reference(starts_el, q, r, tau, spfh_r, *, q_tile: int, band: int):
+    """Plain PyTorch version of K6: (n_pad, 33) f32 weighted neighbour sums."""
+    n_tiles = starts_el.shape[0]
+    q_t, tau_t = q.view(n_tiles, q_tile, 3), tau.view(n_tiles, q_tile)
+    out = []
+    for g in common.tile_groups(n_tiles, q_tile * 2 * band):
+        st = starts_el[g]
+        d2 = common.sqdist_tiles(q_t[g], common.slabs(st, r, band))
+        keep = pair_keep(d2, tau_t[g], st, q_tile, band, g.start)
+        W = torch.where(keep, torch.reciprocal(torch.clamp(d2, min=1e-12)), 0.0)
+        out.append(torch.bmm(W, common.slabs(st, spfh_r, band)))
+    return torch.cat(out).reshape(n_tiles * q_tile, FEATURE_DIM)
+
+
+def fpfh(starts_el, q, r, tau, spfh_r, *, q_tile: int, band: int):
+    """1/d2-weighted sums of the neighbours' SPFH over K5's neighbourhoods.
+
+    tau: (n_pad,) f32 from ``spfh``; spfh_r: (nr_pad, 33) f32 SPFH in ref-row
+    order (zero rows past the cloud).  Returns (n_pad, 33) f32.  CPU tensors
+    run the plain version; CUDA tensors the kernel.
+    """
+    n_tiles = starts_el.shape[0]
+    nr_pad = r.shape[0]
+    common.check_tiling(q.shape[0], q_tile, n_tiles, band, nr_pad)
+    if not common.on_cuda(starts_el, q, r, tau, spfh_r):
+        return fpfh_reference(starts_el, q, r, tau, spfh_r, q_tile=q_tile, band=band)
+    n_pad = n_tiles * q_tile
+    common.check(starts_el, "starts_el", torch.int32, (n_tiles,))
+    common.check(q, "q", torch.float32, (n_pad, 3))
+    common.check(r, "r", torch.float32, (nr_pad, 3))
+    common.check(tau, "tau", torch.float32, (n_pad,))
+    common.check(spfh_r, "spfh_r", torch.float32, (nr_pad, FEATURE_DIM))
+    out = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.pcr_fpfh(
+            starts_el.data_ptr(), q.data_ptr(), r.data_ptr(), tau.data_ptr(),
+            spfh_r.data_ptr(), n_pad, q_tile, band, out.data_ptr(), common.stream_of(q))
+    build.check_launch("fpfh", err)
+    LAUNCHES["fpfh"] += 1
     return out

@@ -27,14 +27,26 @@ from . import voxel as voxel_ops
 from .kernels import feature_kernels
 from ..utils.cloud import Cloud, PAD_COORD, pad_rows
 
-def _centred_slab_starts(n_tiles: int, q_tile: int, band: int, nr_pad: int,
-                         device) -> torch.Tensor:
+def centred_slab_starts(n_tiles: int, q_tile: int, band: int, nr_pad: int) -> list[int]:
     """Slab start of every tile (element offset), centred on the tile and
-    clipped into [0, nr_pad - 2*band] — pcr_tpu/ops/preprocess.py:211-214."""
+    clipped into [0, nr_pad - 2*band] — pcr_tpu/ops/preprocess.py:211-214
+    and pcr_tpu/ops/fpfh_sorted.py:221-224.  Host ints: the placement
+    depends on the shapes alone."""
     max_blk = max(nr_pad // band - 2, 0)
-    starts = [min(max((t * q_tile - (2 * band - q_tile) // 2) // band, 0), max_blk) * band
-              for t in range(n_tiles)]
-    return torch.tensor(starts, dtype=torch.int32, device=device)
+    return [min(max((t * q_tile - (2 * band - q_tile) // 2) // band, 0), max_blk) * band
+            for t in range(n_tiles)]
+
+
+def sweep_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Stable sort order of the points (padding at PAD_COORD) along the axis
+    of largest valid extent."""
+    n = points.shape[0]
+    p = torch.where(mask[:, None], points, PAD_COORD)
+    pmax = torch.where(mask[:, None], points, -3e38).amax(dim=0)
+    pmin = torch.where(mask[:, None], points, 3e38).amin(dim=0)
+    axis = torch.argmax(pmax - pmin)
+    pa = p.gather(1, axis.view(1, 1).expand(n, 1))[:, 0]
+    return torch.argsort(pa, stable=True)
 
 
 def sort_and_tile(points: torch.Tensor, mask: torch.Tensor, q_tile: int, band: int):
@@ -43,18 +55,35 @@ def sort_and_tile(points: torch.Tensor, mask: torch.Tensor, q_tile: int, band: i
     (padding at PAD_COORD) and mask, the points padded to whole query tiles
     and to the slab-padded ref rows, and each tile's slab start."""
     n = points.shape[0]
-    p = torch.where(mask[:, None], points, PAD_COORD)
-    pmax = torch.where(mask[:, None], points, -3e38).amax(dim=0)
-    pmin = torch.where(mask[:, None], points, 3e38).amin(dim=0)
-    axis = torch.argmax(pmax - pmin)
-    pa = p.gather(1, axis.view(1, 1).expand(n, 1))[:, 0]
-    order = torch.argsort(pa, stable=True)
-    ps = p[order]
+    order = sweep_order(points, mask)
+    ps = torch.where(mask[:, None], points, PAD_COORD)[order]
     n_pad = -(-n // q_tile) * q_tile
     nr_pad = (-(-n // band) + 1) * band
-    starts_el = _centred_slab_starts(n_pad // q_tile, q_tile, band, nr_pad, points.device)
+    starts = centred_slab_starts(n_pad // q_tile, q_tile, band, nr_pad)
     return (ps, mask[order], pad_rows(ps, n_pad, PAD_COORD), pad_rows(ps, nr_pad, PAD_COORD),
-            starts_el)
+            torch.tensor(starts, dtype=torch.int32, device=points.device))
+
+
+def normals_from_moments(S: torch.Tensor, mask: torch.Tensor):
+    """(normals (n, 3), cov (n, 3, 3)) from neighbourhood moments
+    S = [sum x | sum y | sum z | xx xy xz yy yz zz | count] (n, 10), with the
+    nz >= 0 sign convention of ops/normals; rows with fewer than 3
+    neighbours or off the mask get zero normals."""
+    cnt = torch.clamp(S[:, 9], min=1.0)
+    m1 = S[:, 0:3] / cnt[:, None]                         # E[x] (centred frame)
+    xx = S[:, 3], S[:, 4], S[:, 5], S[:, 6], S[:, 7], S[:, 8]
+    exx = torch.stack(
+        [torch.stack([xx[0], xx[1], xx[2]], dim=-1),
+         torch.stack([xx[1], xx[3], xx[4]], dim=-1),
+         torch.stack([xx[2], xx[4], xx[5]], dim=-1)],
+        dim=-2,
+    ) / cnt[:, None, None]                                # E[xx^T]
+    cov = exx - m1[:, :, None] * m1[:, None, :]
+    enough = S[:, 9] >= 3
+    normals = eigen3.smallest_eigenvector(cov)
+    flip = (normals[:, 2] < 0) | ((normals[:, 2] == 0) & (normals[:, 0] < 0))
+    normals = torch.where(flip[:, None], -normals, normals)
+    return torch.where((enough & mask)[:, None], normals, 0.0), cov
 
 
 def outlier_and_normals_sorted(
@@ -98,22 +127,7 @@ def outlier_and_normals_sorted(
     S = feature_kernels.survivor_moments(
         starts_el, p_q, p_r, keep_r, tau_p, center, q_tile=q_tile, band=band,
         normal_k=normal_k)[:n]
-    cnt2 = torch.clamp(S[:, 9], min=1.0)
-    m1 = S[:, 0:3] / cnt2[:, None]                        # E[x] (centred frame)
-    xx = S[:, 3], S[:, 4], S[:, 5], S[:, 6], S[:, 7], S[:, 8]
-    exx = torch.stack(
-        [torch.stack([xx[0], xx[1], xx[2]], dim=-1),
-         torch.stack([xx[1], xx[3], xx[4]], dim=-1),
-         torch.stack([xx[2], xx[4], xx[5]], dim=-1)],
-        dim=-2,
-    ) / cnt2[:, None, None]                               # E[xx^T]
-    cov = exx - m1[:, :, None] * m1[:, None, :]
-
-    enough = S[:, 9] >= 3
-    normals = eigen3.smallest_eigenvector(cov)
-    flip = (normals[:, 2] < 0) | ((normals[:, 2] == 0) & (normals[:, 0] < 0))
-    normals = torch.where(flip[:, None], -normals, normals)
-    normals = torch.where((enough & keep)[:, None], normals, 0.0)
+    normals, cov = normals_from_moments(S, keep)
     pts_out = torch.where(keep[:, None], ps, PAD_COORD)
     return Cloud(points=pts_out, mask=keep, normals=normals, covariances=cov)
 

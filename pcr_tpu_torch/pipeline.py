@@ -1,13 +1,14 @@
-"""Stage-2 runner (port of pcr_tpu/pipeline.py, the streamed single-pair
-branch of ``run_stage2_mgicp``).
+"""Stage-1 and stage-2 runners (port of pcr_tpu/pipeline.py, the streamed
+single-pair branches of ``run_stage1_fgr`` and ``run_stage2_mgicp``).
 
 Stage contract, kept from the reference: every stage persists poses as
 ``pose_{i+1}_{i}.txt`` / ``pose{i}.txt`` text files and the next stage reloads
 them, so the pipeline is restartable at stage granularity.
 
-Not ported yet: stage 1 (FGR) and with it the stage-2 retry ladder, the
-batched (``batch_size > 1``) and mesh branches, stage 3 and the CLI.  Each
-raises ``NotImplementedError`` where a run would need it.
+Not ported yet: the stage-2 retry ladder (it needs the selection-path FGR
+features), the selection feature path of stage 1, the batched
+(``batch_size > 1``) and mesh branches, stage 3 and the CLI.  Each raises
+``NotImplementedError`` where a run would need it.
 """
 
 from __future__ import annotations
@@ -20,18 +21,22 @@ import time
 import numpy as np
 
 from .models import evaluate as eval_mod
+from .models import fgr as fgr_mod
 from .models import multiscale as ms_mod
+from .ops import fpfh_sorted
 from .utils import cloud as cloud_mod
 from .utils import poses_io, se3
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The stage-2 fields of ``pcr_tpu.pipeline.PipelineConfig`` that the
-    ported branch reads, with the same defaults (the reference's constants)."""
+    """The fields of ``pcr_tpu.pipeline.PipelineConfig`` that the ported
+    branches read, with the same defaults (the reference's constants)."""
 
     dataset: str = "Facade"
     voxel_size: float = 0.1
+    fgr_iterations: int = 300
+    fgr_seed: int = 0
     mgicp_scales: int = 5
     mgicp_iterations: int = 100
     # A pair whose refined fitness lands at/below retry_fitness is re-seeded
@@ -45,6 +50,12 @@ class PipelineConfig:
     # "auto": plan the tightest safe capacities from the clouds
     # (cloud.plan_scale_caps); a tuple pins them; None disables compaction.
     scale_capacities: tuple | str | None = "auto"
+    # rounding unit of the per-scan capacity buckets of stage 1
+    bucket_granularity: int = 4096
+    # stage-1 features: "banded" (ops/fpfh_sorted, kernels K4-K6); the
+    # reference's "selection" path is not ported
+    stage1_features: str = "banded"
+    stage1_band: int = 2048
     output_root: str = "outputs"
 
     def out_dir(self, stage: str) -> str:
@@ -85,6 +96,129 @@ class PairMetrics:
         if not rows:
             return 0.0
         return sum(1 for r in rows if r[key] > gate) / len(rows)
+
+
+def _pad_feat(feat, capacity: int):
+    """Pad (N, 33) features with zero rows to ``capacity`` (mask handles it)."""
+    return cloud_mod.pad_rows(feat, capacity, 0.0)
+
+
+def _prep_features(c, bucket: int, voxel: float, band: int):
+    """Per-scan stage-1 preprocessing: compact to the scan's capacity bucket,
+    then the banded normals + FPFH."""
+    return fpfh_sorted.fgr_features_sorted(cloud_mod.compact(c, bucket), voxel, band=band)
+
+
+def _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B: int):
+    """Pad a pair's clouds and features to the pair bucket B."""
+    return (cloud_mod.pad_to(src_f, B), _pad_feat(feat_src, B),
+            cloud_mod.pad_to(tgt_f, B), _pad_feat(feat_tgt, B))
+
+
+def _fgr_pair_step(src_f, feat_src, tgt_f, feat_tgt, seed: int, B: int, opts):
+    """Per-pair stage-1 step: pad both scans to the pair bucket, then FGR."""
+    src_p, fs, tgt_p, ft = _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B)
+    return fgr_mod.registration_fgr(src_p, tgt_p, fs, ft, opts, seed=seed)
+
+
+def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
+                   metrics: PairMetrics | None = None, mesh=None) -> np.ndarray:
+    """FGR over all circuit pairs; returns (n, 4, 4) f64 relative poses and
+    writes them (``relative_poses_FGR``) and the metrics.
+
+    ``clouds`` is a list of port Clouds, all on one device, which is where
+    the run happens.  Each scan's features (normals + FPFH) are computed once
+    at its own capacity bucket and shared by the two pairs it serves; a pair
+    runs at the larger of its two buckets."""
+    if mesh is not None or cfg.batch_size > 1:
+        raise NotImplementedError(
+            "only the streamed branch (batch_size=1, no mesh) is ported")
+    if cfg.stage1_features != "banded":
+        raise NotImplementedError(
+            f"stage1_features={cfg.stage1_features!r}: only the banded path is ported")
+    if clouds is None:
+        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
+    n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    metrics = metrics if metrics is not None else PairMetrics()
+    # every bucket up front: each read waits for the device, so none may
+    # fall inside the pipelined loop
+    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    feat_cache: dict[int, tuple] = {}
+
+    def features(i):
+        if i not in feat_cache:
+            feat_cache[i] = _prep_features(clouds[i], buckets[i], cfg.voxel_size,
+                                           cfg.stage1_band)
+        return feat_cache[i]
+
+    ckpt = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
+    out = np.zeros((n, 4, 4))
+    # Pipelined loop: register up to cfg.inflight pairs before reading the
+    # oldest result, so its device-to-host reads overlap the next pairs' work.
+    inflight: list[tuple] = []
+    drained = 0
+    last_drain = time.time()
+
+    def drain_one():
+        nonlocal drained, last_drain
+        k, src_i, tgt_i, res = inflight.pop(0)
+        out[k] = res.transformation.double().cpu().numpy()
+        now = time.time()   # wall-true delta between consecutive reads
+        metrics.add("fgr", src_i, tgt_i, float(res.fitness), float(res.inlier_rmse),
+                    now - last_drain)
+        last_drain = now
+        drained = k + 1
+        if drained % 50 == 0:  # crash-resumable partial checkpoint
+            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+            np.save(ckpt, out[:drained])
+            metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+
+    for k, (src_i, tgt_i) in enumerate(circuit_pairs(n)):
+        src, feat_src = features(src_i)
+        tgt, feat_tgt = features(tgt_i)
+        B = max(src.capacity, tgt.capacity)
+        opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)._replace(
+            iteration_number=cfg.fgr_iterations)
+        res = _fgr_pair_step(src, feat_src, tgt, feat_tgt, cfg.fgr_seed + src_i, B, opts)
+        inflight.append((k, src_i, tgt_i, res))
+        # keep only the features the next pair still needs
+        for key in [key for key in feat_cache if key not in (src_i, (src_i + 1) % n)]:
+            del feat_cache[key]
+        while len(inflight) >= max(cfg.inflight, 1):
+            drain_one()
+    while inflight:
+        drain_one()
+    _flag_stage1_outliers(out, metrics)
+    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out)
+    metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+    return out
+
+
+def _flag_stage1_outliers(poses: np.ndarray, metrics: PairMetrics, window: int = 10,
+                          factor: float = 3.0, slack_m: float = 0.5) -> int:
+    """Mark suspect stage-1 pairs in the metrics log.
+
+    A circuit's per-pair translation magnitudes vary smoothly, so a pair
+    whose ``|t|`` exceeds ``factor`` x the median of its +-window circuit
+    neighbours (plus an absolute slack) is flagged ``stage1_outlier``.  Every
+    fgr row gains ``t_norm_m``.  Returns the number of flagged pairs."""
+    t = np.linalg.norm(np.asarray(poses)[:, :3, 3], axis=1)
+    n = len(t)
+    off = [d for d in range(-window, window + 1) if d != 0]
+    idx = (np.arange(n)[:, None] + np.asarray(off)[None, :]) % n
+    med = np.median(t[idx], axis=1)
+    flagged = t > np.maximum(factor * med, med + slack_m)
+    rows = {(r["src"], r["tgt"]): r for r in metrics.rows if r["stage"] == "fgr"}
+    count = 0
+    for k, (s, tg) in enumerate(circuit_pairs(n)):
+        r = rows.get((s, tg))
+        if r is None:
+            continue
+        r["t_norm_m"] = float(t[k])
+        if flagged[k]:
+            r["stage1_outlier"] = True
+            count += 1
+    return count
 
 
 def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,

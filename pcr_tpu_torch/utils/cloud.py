@@ -46,9 +46,20 @@ class Cloud:
         return torch.sum(self.mask.to(torch.int32), dim=-1)
 
 
+def _placement(device: torch.device | str | None) -> torch.device:
+    """``device``, or the card when it is None; without a card the caller
+    must ask for the CPU (no silent fallback)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build a cloud on the CPU")
+    return torch.device("cuda")
+
+
 def from_numpy(points: np.ndarray, capacity: int | None = None,
-               device: torch.device | str = "cpu") -> Cloud:
-    """Pad host points (n, 3) to ``capacity`` (default: round_up(n))."""
+               device: torch.device | str | None = None) -> Cloud:
+    """Pad host points (n, 3) to ``capacity`` (default: round_up(n)), on
+    ``device`` (default: the CUDA card)."""
     points = np.asarray(points, dtype=np.float32)
     n = points.shape[0]
     cap = capacity or round_up(n)
@@ -62,10 +73,13 @@ def from_numpy(points: np.ndarray, capacity: int | None = None,
 
 
 def from_arrays(points, mask, normals=None, covariances=None,
-                device: torch.device | str = "cpu") -> Cloud:
+                device: torch.device | str | None = None) -> Cloud:
     """Build a Cloud from the numpy leaves of a ``pcr_tpu`` Cloud (or any
-    array-likes of the same shapes), placed on ``device``.  This is how state
-    crosses between the two packages: the rows are taken as they are."""
+    array-likes of the same shapes), placed on ``device`` (default: the CUDA
+    card).  This is how state crosses between the two packages: the rows are
+    taken as they are."""
+    device = _placement(device)
+
     def put(x, dtype):
         if x is None:
             return None

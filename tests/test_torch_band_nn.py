@@ -28,7 +28,7 @@ def _pair(rng, nr=1800, nq=1500, cap=2048):
     r = rng.uniform(-5, 5, size=(nr, 3)).astype(np.float32)
     q = rng.uniform(-5, 5, size=(nq, 3)).astype(np.float32)
     return (j_cloud.from_numpy(r, cap), j_cloud.from_numpy(q, cap),
-            t_cloud.from_numpy(r, cap), t_cloud.from_numpy(q, cap))
+            t_cloud.from_numpy(r, cap, device="cpu"), t_cloud.from_numpy(q, cap, device="cpu"))
 
 
 def _brute(q, qmask, r, rmask):
@@ -124,7 +124,7 @@ def test_nn1_band_query_sorted_matches(rng, q_tile, exact):
 
 def test_nn1_band_respects_masks(rng):
     pts = rng.uniform(-2, 2, size=(300, 3)).astype(np.float32)
-    c = t_cloud.from_numpy(pts, capacity=512)
+    c = t_cloud.from_numpy(pts, capacity=512, device="cpu")
     d, i = t_band.nn1_band(c.points, c.mask, c.points, c.mask, 0.5, q_tile=128, band=256)
     m = c.mask.numpy()
     assert i.numpy()[m].max() < 300                          # never a padded index

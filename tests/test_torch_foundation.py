@@ -111,7 +111,7 @@ def test_voxel_downsample_matches(rng):
 def test_plan_scale_caps_and_compact_match(rng):
     clouds_np = [rng.uniform(-10, 10, size=(n, 3)).astype(np.float32) for n in (3000, 2200)]
     j_clouds = [j_cloud.from_numpy(p, capacity=4096) for p in clouds_np]
-    t_clouds = [t_cloud.from_numpy(p, capacity=4096) for p in clouds_np]
+    t_clouds = [t_cloud.from_numpy(p, capacity=4096, device="cpu") for p in clouds_np]
     scales = [0.5, 0.3, 0.1]
     assert t_cloud.plan_scale_caps(t_clouds, scales) == j_cloud.plan_scale_caps(j_clouds, scales)
     # compact keeps a uniform stride of the valid rows, like pcr_tpu's
@@ -127,10 +127,24 @@ def test_from_arrays_carries_pcr_tpu_cloud(rng):
     pts = rng.normal(size=(100, 3)).astype(np.float32)
     c = j_cloud.from_numpy(pts, capacity=256)
     normals = np.tile(np.float32([0, 0, 1]), (256, 1))
-    t = t_cloud.from_arrays(np.asarray(c.points), np.asarray(c.mask), normals=normals)
+    t = t_cloud.from_arrays(np.asarray(c.points), np.asarray(c.mask), normals=normals, device="cpu")
     assert t.points.dtype == torch.float32 and t.mask.dtype == torch.bool
     np.testing.assert_array_equal(t.points.numpy(), np.asarray(c.points))
     assert int(t.count()) == 100 and t.normals.shape == (256, 3)
+
+
+def test_clouds_default_to_the_card(rng):
+    """Without ``device`` a cloud goes to the CUDA card; where there is
+    none it raises instead of landing on the CPU."""
+    pts = rng.normal(size=(10, 3)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert t_cloud.from_numpy(pts).points.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_cloud.from_numpy(pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_cloud.from_arrays(pts, np.ones(10, bool))
+    assert t_cloud.from_numpy(pts, device="cpu").points.device.type == "cpu"
 
 
 def test_kernel_wrapper_refuses_other_devices():

@@ -47,7 +47,7 @@ def bumpy_pair(rng, n=1500, cap=2048, step=0.4):
 def _to_port(c):
     return t_cloud.from_arrays(np.asarray(c.points), np.asarray(c.mask),
                                normals=np.asarray(c.normals),
-                               covariances=np.asarray(c.covariances))
+                               covariances=np.asarray(c.covariances), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +123,8 @@ def test_gicp_without_correspondences_keeps_pose():
     """No target point within reach: n_corr == 0 stops the loop after one
     iteration and leaves the pose as it was."""
     pts = np.random.default_rng(3).uniform(-1, 1, size=(200, 3)).astype(np.float32)
-    src = t_cloud.from_numpy(pts, 256)
-    tgt = t_cloud.from_numpy(pts + 50.0, 256)
+    src = t_cloud.from_numpy(pts, 256, device="cpu")
+    tgt = t_cloud.from_numpy(pts + 50.0, 256, device="cpu")
     for c in (src, tgt):
         c.normals = torch.tensor([0.0, 0.0, 1.0]).expand(256, 3).contiguous()
     T0 = t_se3.se3_exp(torch.tensor([0.01, 0.0, 0.0, 0.1, 0.0, 0.0]))

@@ -1,4 +1,4 @@
-"""Kernels K1-K3 on the card against their plain PyTorch versions on the
+"""Kernels K1-K6 on the card against their plain PyTorch versions on the
 same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
@@ -12,6 +12,7 @@ import torch
 from pcr_tpu_torch.ops import preprocess
 from pcr_tpu_torch.ops.kernels import feature_kernels, nn_kernels
 from pcr_tpu_torch.utils import cloud
+from pcr_tpu_torch.utils.cloud import pad_rows
 
 
 @pytest.fixture
@@ -87,3 +88,51 @@ def test_cuda_path_never_falls_back(cuda_rng):
     with pytest.raises(TypeError):
         nn_kernels.nn1_band(starts, torch.zeros(256, 3, device=dev),
                             torch.zeros(512, 3, device=dev), q_tile=256, band=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,band,q_tile", [(4096, 512, 512), (8192, 1024, 512),
+                                            (2048, 256, 256)])
+def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile):
+    """K4-K6 on a bumpy 0.1 m-voxel surface: K4's counts and K5's tau equal
+    (same d2 formula, same bisection), K5's bins equal (the same rounded
+    operations in the same order), K4's and K6's sums equal up to their
+    order (f32, 1e-5 and 2.4e-5 relative).  Each wrapper counts its launch."""
+    dev = torch.device("cuda")
+    side = float(np.sqrt(n) * 0.08)
+    pts = cuda_rng.uniform(-side / 2, side / 2, size=(n - 100, 3)).astype(np.float32)
+    pts[:, 2] = 0.4 * np.sin(pts[:, 0]) * np.cos(0.7 * pts[:, 1])
+    c = cloud.from_numpy(pts, n, device=dev)
+    _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, q_tile, band)
+    before = dict(feature_kernels.LAUNCHES)
+    center = feature_kernels.slab_centroids(starts, p_r, band)
+    k4 = (starts, p_q, p_r, center, 0.1)
+    S_k = feature_kernels.moments(*k4, q_tile=q_tile, band=band)
+    S_p = feature_kernels.moments_reference(*k4, q_tile=q_tile, band=band)
+    assert torch.equal(S_k[:, 9], S_p[:, 9])
+    torch.testing.assert_close(S_k, S_p, rtol=1e-5, atol=1e-5)
+    normals, _ = preprocess.normals_from_moments(S_p[:n], ms)
+    k5 = (starts, p_q, pad_rows(normals, p_q.shape[0], 0.0).contiguous(), p_r,
+          pad_rows(normals, p_r.shape[0], 0.0).contiguous(), 0.1)
+    h_k, tau_k = feature_kernels.spfh(*k5, q_tile=q_tile, band=band)
+    h_p, tau_p = feature_kernels.spfh_reference(*k5, q_tile=q_tile, band=band)
+    assert torch.equal(tau_k, tau_p)
+    assert torch.equal(h_k, h_p)
+    k6 = (starts, p_q, p_r, tau_p, pad_rows(h_p[:n], p_r.shape[0], 0.0).contiguous())
+    a_k = feature_kernels.fpfh(*k6, q_tile=q_tile, band=band)
+    a_p = feature_kernels.fpfh_reference(*k6, q_tile=q_tile, band=band)
+    assert bool(((a_k - a_p).abs() <= 2.4e-5 * a_p.abs() + 1e-7).all())
+    torch.cuda.synchronize()
+    for name in ("moments", "spfh", "fpfh"):
+        assert feature_kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_spfh_refuses_wrong_dtype(cuda_rng):
+    """A CUDA tensor of the wrong type raises instead of running elsewhere."""
+    dev = torch.device("cuda")
+    starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(256, 3, dtype=torch.float64, device=dev)
+    r = torch.zeros(512, 3, device=dev)
+    with pytest.raises(TypeError):
+        feature_kernels.spfh(starts, q, q, r, r, 0.1, q_tile=256, band=256)

@@ -40,7 +40,7 @@ def _surface(rng, n=900, cap=1024):
 
 def _tiled(rng):
     pts, cap = _surface(rng)
-    c = t_cloud.from_numpy(pts, cap)
+    c = t_cloud.from_numpy(pts, cap, device="cpu")
     ps, ms, p_q, p_r, starts = t_pre.sort_and_tile(c.points, c.mask, Q_TILE, BAND)
     return ms, p_q, p_r, starts
 
@@ -100,7 +100,7 @@ def test_outlier_and_normals_matches(rng, backend):
     survivor set, normals median < 1e-4 and 99th percentile < 0.05."""
     pts, cap = _surface(rng)
     cj = j_cloud.from_numpy(pts, cap)
-    ct = t_cloud.from_numpy(pts, cap)
+    ct = t_cloud.from_numpy(pts, cap, device="cpu")
     out_j = j_pre.outlier_and_normals_sorted(cj.points, cj.mask, 30, 1.0, 20, band=BAND,
                                              spacing_hint=H, backend=backend)
     out_t = t_pre.outlier_and_normals_sorted(ct.points, ct.mask, 30, 1.0, 20, band=BAND,
@@ -123,7 +123,7 @@ def test_preprocess_scale_fused_matches(rng):
     pts[:40, 2] += rng.uniform(3, 8, size=40).astype(np.float32)
     out_j = j_pre.preprocess_scale_fused(j_cloud.from_numpy(pts, 4096), 0.25,
                                          scale_capacity=2048)
-    out_t = t_pre.preprocess_scale_fused(t_cloud.from_numpy(pts, 4096), 0.25,
+    out_t = t_pre.preprocess_scale_fused(t_cloud.from_numpy(pts, 4096, device="cpu"), 0.25,
                                          scale_capacity=2048)
     assert out_t.capacity == 2048
     st, sj, diffs = _match_rows(out_t, out_j)
@@ -131,4 +131,4 @@ def test_preprocess_scale_fused_matches(rng):
     assert np.median(diffs) < 1e-4
     assert np.percentile(diffs, 99) < 0.05
     with pytest.raises(ValueError):
-        t_pre.preprocess_scale_fused(t_cloud.from_numpy(pts, 4096), 0.0)
+        t_pre.preprocess_scale_fused(t_cloud.from_numpy(pts, 4096, device="cpu"), 0.0)

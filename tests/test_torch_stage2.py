@@ -73,8 +73,9 @@ def runs(circuit, tmp_path_factory):
     cfg_t = t_pipe.PipelineConfig(output_root=str(root / "torch"), **KW)
     cfg_j = j_pipe.PipelineConfig(output_root=str(root / "jax"), **KW)
     m_t, m_j = t_pipe.PairMetrics(), j_pipe.PairMetrics()
-    out_t = t_pipe.run_stage2_mgicp(cfg_t, init_poses=init.copy(), n=N, metrics=m_t,
-                                    clouds=[t_cloud.from_numpy(s, 2048) for s in scans])
+    out_t = t_pipe.run_stage2_mgicp(
+        cfg_t, init_poses=init.copy(), n=N, metrics=m_t,
+        clouds=[t_cloud.from_numpy(s, 2048, device="cpu") for s in scans])
     out_j = j_pipe.run_stage2_mgicp(cfg_j, init_poses=init.copy(), n=N, metrics=m_j,
                                     clouds=[j_cloud.from_numpy(s, 2048) for s in scans])
     return cfg_t, out_t, m_t, out_j, m_j
@@ -119,7 +120,7 @@ def test_stage2_refuses_unported_branches(circuit, tmp_path):
     """The batched and mesh branches and the FGR retry ladder are not
     ported: they raise instead of running something else."""
     scans, _, init = circuit
-    clouds = [t_cloud.from_numpy(s, 2048) for s in scans]
+    clouds = [t_cloud.from_numpy(s, 2048, device="cpu") for s in scans]
     kw = dict(KW, output_root=str(tmp_path))
     with pytest.raises(NotImplementedError):
         t_pipe.run_stage2_mgicp(t_pipe.PipelineConfig(**dict(kw, batch_size=2)),
@@ -139,7 +140,8 @@ def test_multiscale_gicp_schedules(circuit, schedule):
     """multiscale_gicp (preprocess per call) with both schedules recovers the
     first pair; the doubling schedule clamps each radius to 10x its voxel."""
     scans, gt, init = circuit
-    src, tgt = t_cloud.from_numpy(scans[1], 2048), t_cloud.from_numpy(scans[0], 2048)
+    src = t_cloud.from_numpy(scans[1], 2048, device="cpu")
+    tgt = t_cloud.from_numpy(scans[0], 2048, device="cpu")
     res = t_ms.multiscale_gicp(src, tgt, init[0], n_scales=2, iterations=25,
                                schedule=schedule)
     _, dt = se3.pose_errors(res.transformation.double().numpy(), gt[0])

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Device busy share of the port's warm stage-2 circuit on one GPU.
+"""Device busy share of the port's warm stage-1 or stage-2 circuit on one GPU.
 
-    python3 tools/profile_stage2.py
+    python3 tools/profile_circuit.py [1|2]     (default: 2)
 
 Runs the synthetic 8-scan circuit of chip_smoke.py through
-``pipeline.run_stage2_mgicp`` once cold, REPS times warm without the
-profiler (wall: host clock around a synchronized run), then once warm under
+``pipeline.run_stage1_fgr`` (1) or ``pipeline.run_stage2_mgicp`` (2, from
+the real NCLT FGR errors) once cold, REPS times warm without the profiler
+(wall: host clock around a synchronized run), then once warm under
 ``torch.profiler``.  Prints the unprofiled walls, the profiled wall, the
 device time (union of the intervals of every GPU kernel, memcpy and memset
 the profiler recorded), the busy share under the profiler (device time /
@@ -47,24 +48,29 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("profile_stage2: no CUDA device", file=sys.stderr)
+        print("profile_circuit: no CUDA device", file=sys.stderr)
         return 1
+    stage = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     import chip_smoke
     from pcr_tpu_torch import pipeline
     from pcr_tpu_torch.utils import cloud
 
     dev = torch.device("cuda", 0)
-    print(chip_smoke.gpu_line())
+    print(chip_smoke.gpu_line(), f"| stage {stage}")
     scans, _, init = chip_smoke.make_circuit()
     clouds = [cloud.from_numpy(s, chip_smoke.CAPACITY, device=dev) for s in scans]
 
     with tempfile.TemporaryDirectory() as tmp:
         def run(tag: str) -> float:
-            cfg = chip_smoke.stage2_config(str(Path(tmp) / tag))
+            out = str(Path(tmp) / tag)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipeline.run_stage2_mgicp(cfg, init_poses=init.copy(), clouds=clouds,
-                                      n=chip_smoke.N_SCANS, metrics=pipeline.PairMetrics())
+            if stage == 1:
+                pipeline.run_stage1_fgr(chip_smoke.stage1_config(out), clouds=clouds,
+                                        n=chip_smoke.N_SCANS)
+            else:
+                pipeline.run_stage2_mgicp(chip_smoke.stage2_config(out), init_poses=init.copy(),
+                                          clouds=clouds, n=chip_smoke.N_SCANS)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
