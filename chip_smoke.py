@@ -30,18 +30,35 @@ Phases (any failure ends the run with a non-zero exit code):
   8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses; every
                pair within 3 cm / 0.2 deg;
   9. stage-1 split — features ms/scan; matching, tuple test, GNC and
-               evaluation ms/pair.
+               evaluation ms/pair;
+ 10. K7 brute   — K7 (brute-force 1-NN) against its plain version at the
+               finest-scale brute GICP pair, the 32768-row gate and an odd
+               1000 x 3001 shape: d2 bit-equal, rows equal; kernel, plain
+               and library (cdist + min) times;
+ 11. brute GICP — registration_gicp(corr_method="brute") warm-started over
+               the 5 pyramid scales of every pair: within 3 cm / 0.2 deg of
+               ground truth and 5 mm / 0.05 deg of the band GICP; the exact
+               gate evaluation beside the band one; K7 must have been
+               launched;
+ 12. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
+               every pair within 0.5 m / 5 deg;
+ 13. retry ladder — stage 2 with retry_failed=True (the reference default),
+               pair RETRY_PAIR thrown RETRY_OFFSET_M off: its status must
+               start with "retried" and it must land within 3 cm / 0.2 deg;
+               the other pairs as in phase 4.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
-(8 operations) per (query, slab row) pair and the per-pair work of the pairs
-this run's data keeps; ``library_ms`` is null, as no single PyTorch call
-computes a banded neighbourhood reduction.
+and one compare (9 operations) per (query, candidate) pair and the per-pair
+work of the pairs this run's data keeps; ``library_ms`` is null for K1-K6,
+as no single PyTorch call computes a banded neighbourhood reduction, and
+for K7 the time of torch.cdist (direct formula) and its row minimum.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -66,6 +83,12 @@ MAX_FGR_T_ERR_M = 0.5
 MAX_FGR_R_ERR_DEG = 5.0
 SEED = 0
 SIDE_STEP_M = 1.0         # the way back runs this far to the left of the way out
+# the retry ladder: this pair's initial translation is thrown this far off
+RETRY_PAIR = 1
+RETRY_OFFSET_M = 50.0
+# exact-correspondence GICP against the band GICP, pair by pair
+MAX_BRUTE_BAND_T_M = 0.005
+MAX_BRUTE_BAND_R_DEG = 0.05
 FEATURE_BAND = 2048       # PipelineConfig.stage1_band
 FEATURE_Q_TILE = 512      # fgr_features_sorted's query tile
 HBM_BYTES_PER_S = 3.35e12
@@ -196,6 +219,13 @@ def make_circuit(seed: int = SEED):
         local = (pts - A[:3, 3]) @ A[:3, :3]            # world -> sensor frame
         scans.append(local.astype(np.float32))
     return scans, gt, init
+
+
+def thrown_off(init: np.ndarray, pair: int, offset_m: float) -> np.ndarray:
+    """``init`` with pair ``pair``'s translation moved ``offset_m`` along x."""
+    out = init.copy()
+    out[pair, 0, 3] += offset_m
+    return out
 
 
 def pose_error(T: np.ndarray, T_gt: np.ndarray) -> tuple[float, float]:
@@ -390,10 +420,12 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
 
 def record(name: str, source: str, replaces: str, results: list, timed: tuple) -> dict:
     """A kernel's entry of the JSON line: the worst error over every checked
-    shape, and the times and bound of the main path's shape ``timed``."""
+    shape, and the times and bound of the main path's shape ``timed``
+    (err, ms, plain ms, bound ms, bound by[, library ms])."""
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max(r[0] for r in results), ms=timed[1], plain_ms=timed[2],
-                bound_ms=timed[3], bound_by=timed[4], library_ms=None)
+                bound_ms=timed[3], bound_by=timed[4],
+                library_ms=timed[5] if len(timed) > 5 else None)
 
 
 def phase_kernels(dev, clouds, gt) -> list[dict]:
@@ -446,6 +478,7 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
 
 STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments")
 STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh")
+BRUTE_KERNELS = ("nn1",)
 
 
 def reset_launches() -> None:
@@ -500,14 +533,16 @@ def timed_runs(label: str, runs, fn):
     return out, launches
 
 
-def run_stage2(clouds, gt, init, label: str, runs) -> dict:
+def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
     """Stage 2 over the circuit from ``init``; every pair within 3 cm /
-    0.2 deg, and K1-K3 launched by the last run.  Returns its launches."""
+    0.2 deg, and K1-K3 launched by the last run.  Returns its (poses,
+    metrics, launches)."""
     from pcr_tpu_torch import pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
         def one(run):
-            cfg = stage2_config(str(Path(tmp) / run))
+            cfg = dataclasses.replace(stage2_config(str(Path(tmp) / run)),
+                                      retry_failed=retry_failed)
             metrics = pipeline.PairMetrics()
             out = pipeline.run_stage2_mgicp(cfg, init_poses=init.copy(), clouds=clouds,
                                             n=N_SCANS, metrics=metrics)
@@ -523,19 +558,20 @@ def run_stage2(clouds, gt, init, label: str, runs) -> dict:
         print(f"pair ({row['src']},{row['tgt']}): init {e0_t * 100:.2f} cm {e0_r:.3f} deg"
               f" -> {e_t * 100:.3f} cm {e_r:.4f} deg; iterations/scale "
               f"{row['scale_iterations']}; fitness {row['fitness']:.4f}; "
-              f"gate fitness {row['gate_fitness']:.4f}")
+              f"gate fitness {row['gate_fitness']:.4f}; status {row['status']}")
         if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
             raise AssertionError(f"pair {k} off ground truth: {e_t} m, {e_r} deg")
     print(f"{label}: worst pair error {worst[0] * 100:.3f} cm, {worst[1]:.4f} deg "
           f"(limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg)")
     check_launched(launches, STAGE2_KERNELS, label)
-    return launches
+    return out, metrics, launches
 
 
-def phase_slice(clouds, gt, init) -> dict:
+def phase_slice(clouds, gt, init):
     """Stage 2 over the circuit twice from the real NCLT FGR errors; returns
-    the warm run's launch counts."""
-    return run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
+    the warm run's (poses, launch counts)."""
+    out, _, launches = run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
+    return out, launches
 
 
 def phase_split(clouds, init) -> None:
@@ -739,6 +775,166 @@ def phase_stage1_split(clouds) -> None:
           f"{ms[3]:.1f} ms ({ms.sum():.1f} ms/pair)")
 
 
+def check_k7(label: str, q, r, library: bool = True):
+    """K7 against its plain version on (q, r): d2 bit-equal and rows equal;
+    returns (max |d2 err|, ms, plain ms, bound ms, bound by, library ms)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    d_k, i_k = nk.nn1(q, r)
+    d_p, i_p = nk.nn1_reference(q, r)
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"K7 {label}: d2 differs at {int((d_k != d_p).sum())} queries, "
+                             f"max {float((d_k - d_p).abs().max())}")
+    if not torch.equal(i_k, i_p):
+        raise AssertionError(f"K7 {label}: rows differ at {int((i_k != i_p).sum())} queries")
+    nq, nr = q.shape[0], r.shape[0]
+    ms = cuda_ms(lambda: nk.nn1(q, r), 20)
+    plain = cuda_ms(lambda: nk.nn1_reference(q, r), 3)
+    lib = None
+    if library:   # one PyTorch call, direct formula (no matmul expansion), then the minimum
+        lib = cuda_ms(lambda: torch.cdist(
+            q, r, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1), 5)
+    lim = bound(12 * nq + 12 * nr + 8 * nq, 9.0 * nq * nr)
+    print(f"K7 nn1 {label}: {nq} q x {nr} refs, {nk.nn1_splits(nq, nr, nk._sm_count(0))} "
+          f"ref splits, d2 bit-equal, rows equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {lim[0]:.4f} ms, library (cdist + min) "
+          f"{'not timed' if lib is None else f'{lib:.4f} ms'}")
+    return 0.0, ms, plain, *lim, lib
+
+
+def phase_k7(dev, clouds, gt) -> dict:
+    """K7 at the shapes the exact paths give it on the first pair: the
+    finest-scale brute GICP (pyramid capacity squared), the gate's
+    32768-row clouds, and an odd 1000 x 3001 cut of them.  The JSON record
+    keeps the finest GICP shape's times."""
+    import torch
+
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.utils import cloud, se3
+    from pcr_tpu_torch.utils.cloud import PAD_COORD
+
+    scales = multiscale.create_scales(5)
+    caps = cloud.plan_scale_caps(clouds, scales)
+    T = torch.as_tensor(gt[0], dtype=torch.float32, device=dev)
+
+    def qr(src, tgt):
+        q = se3.transform_points(T, src.points).contiguous()
+        return q, torch.where(tgt.mask[:, None], tgt.points, PAD_COORD).contiguous()
+
+    fine = (multiscale.build_pyramid(clouds[1], 5, caps)[-1],
+            multiscale.build_pyramid(clouds[0], 5, caps)[-1])
+    gicp_rec = check_k7("finest brute GICP", *qr(*fine))
+    q, r = qr(clouds[1], clouds[0])
+    gate_rec = check_k7("gate", q, r)
+    odd_rec = check_k7("odd shape", q[:1000].contiguous(), r[:3001].contiguous(), library=False)
+    return record("nn1", "pcr_tpu_torch/csrc/nn1.cu", "pcr_tpu/ops/pallas/nn_kernels.py:192",
+                  [gicp_rec, gate_rec, odd_rec], gicp_rec)
+
+
+def phase_brute(clouds, gt, init):
+    """Exact-correspondence M-GICP over the circuit: per pair, the pyramids
+    of stage 2 and registration_gicp(corr_method="brute") warm-started over
+    the 5 scales from the real NCLT FGR errors, held to ground truth and to
+    the band GICP on the same pyramids; then the gate's exact evaluation
+    beside the band one.  Returns the launch counts of the run."""
+    import torch
+
+    from pcr_tpu_torch.models import evaluate, gicp, multiscale
+    from pcr_tpu_torch.pipeline import circuit_pairs
+    from pcr_tpu_torch.utils import cloud
+
+    cfg = stage2_config("unused")
+    scales = multiscale.create_scales(cfg.mgicp_scales)
+    dists = multiscale.max_correspondence_distances(scales)
+    caps = cloud.plan_scale_caps(clouds, scales)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pyrs = [multiscale.build_pyramid(c, cfg.mgicp_scales, caps) for c in clouds]
+    worst = [0.0, 0.0, 0.0, 0.0]
+    for k, (s, t) in enumerate(circuit_pairs(N_SCANS)):
+        T, its = init[k].astype(np.float32), []
+        for i, dist in enumerate(dists):
+            res = gicp.registration_gicp(pyrs[s][i], pyrs[t][i], dist, T, corr_method="brute",
+                                         max_iteration=cfg.mgicp_iterations)
+            T = res.transformation
+            its.append(int(res.iterations))
+        brute = T.double().cpu().numpy()
+        band = multiscale.multiscale_gicp_pyramids(
+            pyrs[s], pyrs[t], init[k].astype(np.float32)).transformation.double().cpu().numpy()
+        e_t, e_r = pose_error(brute, gt[k])
+        d_t, d_r = pose_error(brute, band)
+        gate = [evaluate.evaluate_registration(clouds[s], clouds[t], 2 * cfg.voxel_size, brute,
+                                               method=m) for m in ("exact", "band")]
+        print(f"brute pair ({s},{t}): {e_t * 100:.3f} cm {e_r:.4f} deg from ground truth, "
+              f"{d_t * 1000:.3f} mm {d_r:.4f} deg from band; iterations/scale {its}; gate "
+              f"exact n_corr {float(gate[0][2]):.0f} fitness {float(gate[0][0]):.6f}, band "
+              f"n_corr {float(gate[1][2]):.0f} fitness {float(gate[1][0]):.6f}")
+        if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
+            raise AssertionError(f"brute pair {k} off ground truth: {e_t} m, {e_r} deg")
+        if not (d_t < MAX_BRUTE_BAND_T_M and d_r < MAX_BRUTE_BAND_R_DEG):
+            raise AssertionError(f"brute pair {k} off the band result: {d_t} m, {d_r} deg")
+        worst = [max(a, b) for a, b in zip(worst, (e_t, e_r, d_t, d_r))]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"brute GICP: {wall:.3f} s for {N_SCANS} pairs (pyramids, brute and band GICP, both "
+          f"gate evaluations); worst {worst[0] * 100:.3f} cm {worst[1]:.4f} deg from ground "
+          f"truth (limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg), {worst[2] * 1000:.3f} "
+          f"mm {worst[3]:.4f} deg from band (limits {MAX_BRUTE_BAND_T_M * 1000:g} mm, "
+          f"{MAX_BRUTE_BAND_R_DEG} deg); launches {launches}")
+    check_launched(launches, BRUTE_KERNELS, "the brute GICP")
+    return launches
+
+
+def phase_stage1_selection(clouds, gt) -> None:
+    """Stage 1 over the circuit on the selection features (one exact k=200
+    selection per scan, gathered normals and FPFH); every pair within
+    0.5 m / 5 deg."""
+    from pcr_tpu_torch import pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def one(run):
+            cfg = dataclasses.replace(stage1_config(str(Path(tmp) / run)),
+                                      stage1_features="selection")
+            metrics = pipeline.PairMetrics()
+            out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
+            return cfg, metrics, out
+
+        (cfg, metrics, out), _ = timed_runs("stage 1 (selection)", ("one",), one)
+        check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
+    worst = 0.0, 0.0
+    for k, row in enumerate(metrics.rows):
+        e_t, e_r = pose_error(out[k], gt[k])
+        worst = max(worst[0], e_t), max(worst[1], e_r)
+        print(f"selection FGR pair ({row['src']},{row['tgt']}): {e_t * 100:.2f} cm "
+              f"{e_r:.3f} deg; fitness {row['fitness']:.4f}")
+        if not (e_t < MAX_FGR_T_ERR_M and e_r < MAX_FGR_R_ERR_DEG):
+            raise AssertionError(f"selection FGR pair {k} off ground truth: {e_t} m, {e_r} deg")
+    print(f"stage 1 (selection): worst pair error {worst[0] * 100:.2f} cm, {worst[1]:.3f} deg "
+          f"(limits {MAX_FGR_T_ERR_M * 100:g} cm, {MAX_FGR_R_ERR_DEG} deg)")
+
+
+def phase_retry(clouds, gt, init, base: np.ndarray) -> None:
+    """Stage 2 with the reference's retry ladder on, pair RETRY_PAIR thrown
+    RETRY_OFFSET_M off: that pair must be retried and land within 3 cm /
+    0.2 deg; the other pairs must be the poses of the unthrown run."""
+    seeded = thrown_off(init, RETRY_PAIR, RETRY_OFFSET_M)
+    out, metrics, _ = run_stage2(clouds, gt, seeded, "retry ladder", ("one",),
+                                 retry_failed=True)
+    status = metrics.rows[RETRY_PAIR]["status"]
+    if not status.startswith("retried"):
+        raise AssertionError(f"pair {RETRY_PAIR} was not rescued by the ladder: {status}")
+    others = [k for k in range(N_SCANS) if k != RETRY_PAIR]
+    moved = float(np.abs(out[others] - base[others]).max())
+    if moved > 1e-4:
+        raise AssertionError(f"the ladder moved the other pairs by {moved}")
+    print(f"retry ladder: pair {RETRY_PAIR} thrown {RETRY_OFFSET_M:g} m off -> {status}; "
+          f"other pairs within {moved:.3e} of the unthrown run")
+
+
 def main() -> int:
     import torch
 
@@ -763,14 +959,20 @@ def main() -> int:
     clouds = [cloud.from_numpy(s, CAPACITY, device=dev) for s in scans]
     print("scan valid points:", [len(s) for s in scans])
     records = phase_kernels(dev, clouds, gt)
-    launches2 = phase_slice(clouds, gt, init)
+    base, launches2 = phase_slice(clouds, gt, init)
     phase_split(clouds, init)
     records += phase_feature_kernels(clouds)
     rel1, launches1 = phase_stage1(clouds, gt)
     run_stage2(clouds, gt, rel1, "stage 1 -> 2", ("seeded by stage 1",))
     phase_stage1_split(clouds)
+    records.append(phase_k7(dev, clouds, gt))
+    launches7 = phase_brute(clouds, gt, init)
+    phase_stage1_selection(clouds, gt)
+    phase_retry(clouds, gt, init, base)
     for rec in records:
-        rec["launches"] = (launches2 if rec["name"] in STAGE2_KERNELS else launches1)[rec["name"]]
+        rec["launches"] = (launches2 if rec["name"] in STAGE2_KERNELS
+                           else launches7 if rec["name"] in BRUTE_KERNELS
+                           else launches1)[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

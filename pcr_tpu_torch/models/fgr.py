@@ -19,6 +19,11 @@ use_absolute_scale=False, decrease_mu=True, maximum_correspondence_distance
 The tuple test draws its uniforms from a ``torch.Generator``, which cannot
 replay ``jax.random``'s stream: the two packages agree on a pose
 statistically, or exactly when handed the same draws (``u``).
+
+``registro_fgr`` is the reference's whole per-pair pipeline over the
+selection features of ``fgr_features`` (one exact k=200 self-kNN shared by
+the hybrid normals and the FPFH); the stage-1 runner's default features are
+the banded ones of ``ops/fpfh_sorted``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import fpfh as fpfh_ops
 from ..ops import knn as knn_ops
+from ..ops import normals as normals_ops
 from ..utils import se3
 from ..utils.cloud import Cloud
 from . import evaluate as eval_mod
@@ -168,6 +175,28 @@ def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: Fgr
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.full((), opts.iteration_number, dtype=torch.int32,
                                          device=source.device))
+
+
+def fgr_features(c: Cloud, voxel_size: float) -> tuple[Cloud, torch.Tensor]:
+    """Per-cloud FGR preprocessing: Hybrid(2v, 20) normals and
+    Hybrid(10v, 200) FPFH over ONE k=200 self-excluded kNN selection (its
+    first 19 columns plus the query itself are the normal neighbourhood).
+    Returns (the cloud with normals and covariances, its (N, 33) FPFH)."""
+    d2, idx = knn_ops.knn(c.points, c.points, c.mask, 200, exclude_self=True)
+    normals, cov = normals_ops.estimate_normals_hybrid_from_knn(
+        c.points, c.mask, d2, idx, 2 * voxel_size, 20)
+    feat = fpfh_ops.fpfh(c.points, normals, c.mask, 10 * voxel_size, 200, knn_result=(d2, idx))
+    return Cloud(points=c.points, mask=c.mask, normals=normals, covariances=cov), feat
+
+
+def registro_fgr(source: Cloud, target: Cloud, voxel_size: float,
+                 use_absolute_scale: bool = False, seed: int = 0) -> RegistrationResult:
+    """The reference's ``registro_FGR``: hybrid normals (2v, 20) -> FPFH
+    (10v, 200) -> FGR with the script-1 options of the two capacities."""
+    src, feat_src = fgr_features(source, voxel_size)
+    tgt, feat_tgt = fgr_features(target, voxel_size)
+    opts = default_options(src, tgt, voxel_size, use_absolute_scale)
+    return registration_fgr(src, tgt, feat_src, feat_tgt, opts, seed=seed)
 
 
 def default_options(source: Cloud, target: Cloud, voxel_size: float,

@@ -1,9 +1,10 @@
-"""Generalized-ICP over the band correspondence search (port of
-pcr_tpu/models/gicp.py, band method).
+"""Generalized-ICP (port of pcr_tpu/models/gicp.py, its band and brute
+correspondence methods).
 
 Per Gauss-Newton iteration:
   1. 1-NN correspondences of the transformed source in the target within
-     max_dist (band sweep, kernel K1);
+     max_dist (band sweep, kernel K1; or brute force over the whole target,
+     kernel K7);
   2. plane-disk GICP residuals d = q - T p with the Mahalanobis metric
      M = (C_q + R C_p R^T)^-1, both covariances clamped to eigenvalues
      (eps, 1, 1) with eps = 1e-3;
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import band_nn, eigen3
+from ..ops import knn as knn_ops
 from ..utils import se3
 from ..utils.cloud import Cloud, pad_rows
 
@@ -39,6 +41,24 @@ class RegistrationResult(NamedTuple):
     num_correspondences: torch.Tensor
     iterations: torch.Tensor
     scale_iterations: torch.Tensor | None = None
+
+
+def regularize_covariances(cov: torch.Tensor, epsilon: float = GICP_EPSILON) -> torch.Tensor:
+    """GICP covariance conditioning: eigenvalues replaced by (eps, 1, 1), the
+    smallest eigendirection (the surface normal) getting eps."""
+    _, V = eigen3.eigh3(cov)
+    d = torch.tensor([epsilon, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
+    return torch.einsum("...ik,k,...jk->...ij", V, d, V)
+
+
+def covariances_from_normals(normals: torch.Tensor,
+                             epsilon: float = GICP_EPSILON) -> torch.Tensor:
+    """Plane-disk covariance C = I - (1-eps) n n^T of a unit normal
+    (eigenvalues (eps, 1, 1), n the eps-direction): Open3D's construction
+    for a cloud with normals but no covariances."""
+    eye = torch.eye(3, dtype=normals.dtype, device=normals.device)
+    return eye.expand(normals.shape[:-1] + (3, 3)) - (1.0 - epsilon) * (
+        normals[..., :, None] * normals[..., None, :])
 
 
 def _inv3(A: torch.Tensor) -> torch.Tensor:
@@ -112,22 +132,106 @@ def _unit_normals(c: Cloud) -> torch.Tensor:
     return V[..., :, 0]
 
 
+def _regularized_covariances(c: Cloud) -> torch.Tensor:
+    """The cloud's covariances clamped to (eps, 1, 1), or the plane-disk
+    covariances of its normals when it carries none."""
+    if c.covariances is not None:
+        return regularize_covariances(c.covariances)
+    if c.normals is None:
+        raise ValueError("GICP needs normals or covariances on both clouds")
+    return covariances_from_normals(c.normals)
+
+
 def _band_width(nr0: int, cap: int) -> int:
     """Capacity-scaled band: nr/8 rows, rounded to 256, within [512, cap]."""
     return min(cap, max(512, -(-(nr0 // 8) // 256) * 256))
 
 
+def _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist: float):
+    """Brute-force correspondences at pose T (``knn.nn1``, kernel K7):
+    (moved source p, target index j, valid, exact d2)."""
+    p = se3.transform_points(T, src_pts)
+    d2, j = knn_ops.nn1(p, tgt_pts, tgt_mask)
+    valid = src_mask & (d2 <= knn_ops.sq_f32(max_dist)) & (d2 < knn_ops.BIG)
+    return p, j, valid, d2
+
+
+def gicp_step(src_pts, src_cov, src_mask, tgt_pts, tgt_cov, tgt_mask, T, max_dist: float,
+              loss: str = "l1", gm_k: float = 1.0):
+    """One brute-force correspondence search and Gauss-Newton update with
+    full covariances (regularized by the caller).  Returns (T_new, fitness,
+    rmse, n_corr), the metrics measured at the input pose."""
+    p, j, valid, d2 = _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist)
+    fitness, rmse, n_corr = _metrics(valid, d2, src_mask)
+    d = tgt_pts[j] - p
+    R = se3.rot(T)
+    M = _inv3(tgt_cov[j] + R @ src_cov @ R.T)                 # (N, 3, 3)
+    r_norm = torch.sqrt(torch.clamp(d2, min=1e-16))
+    w = robust_weight(loss, r_norm, gm_k) * valid.to(torch.float32)
+    minus_eye = (-torch.eye(3, dtype=torch.float32, device=p.device)).expand(p.shape[0], 3, 3)
+    G = torch.cat([se3.skew(p), minus_eye], dim=-1)           # (N, 3, 6)
+    wG = G * w[:, None, None]
+    H = torch.einsum("nij,nik->jk", wG, M @ G)
+    g = torch.einsum("nij,ni->j", wG, (M @ d[:, :, None])[:, :, 0])
+    H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * torch.eye(6, dtype=H.dtype, device=H.device)
+    xi = torch.where(n_corr > 0, -solve6_cholesky(H, g), 0.0)  # no correspondences: keep T
+    return se3.compose(se3.se3_exp(xi), T), fitness, rmse, n_corr
+
+
 def registration_gicp(source: Cloud, target: Cloud, max_corr_dist, T_init,
-                      loss: str = "l1", gm_k: float = 1.0, max_iteration: int = 100,
-                      relative_fitness: float = 1e-6,
+                      corr_method: str = "auto", loss: str = "l1", gm_k: float = 1.0,
+                      max_iteration: int = 100, relative_fitness: float = 1e-6,
                       relative_rmse: float = 1e-6) -> RegistrationResult:
-    """GICP with ICPConvergenceCriteria semantics over the band
-    correspondence search (pcr_tpu's ``corr_method='band'``; its grid and
-    brute methods are not ported).  The clouds must carry normals or
-    covariances."""
+    """GICP with ICPConvergenceCriteria semantics.  The clouds must carry
+    normals or covariances.
+
+    ``corr_method``: 'auto', 'band' and 'band_pallas' run the band sweep
+    (kernel K1) in sorted space; 'brute' runs the exact brute-force search
+    (kernel K7) with full covariances; pcr_tpu's 'grid' (a CPU hash grid) is
+    not ported."""
     T0 = torch.as_tensor(T_init, dtype=torch.float32, device=source.device)
-    return _gicp_band_sorted(source, target, float(np.float32(max_corr_dist)), T0,
-                             loss, gm_k, max_iteration, relative_fitness, relative_rmse)
+    max_dist = float(np.float32(max_corr_dist))
+    args = (source, target, max_dist, T0, loss, gm_k, max_iteration, relative_fitness,
+            relative_rmse)
+    if corr_method in ("auto", "band", "band_pallas"):
+        return _gicp_band_sorted(*args)
+    if corr_method == "brute":
+        return _gicp_brute(*args)
+    if corr_method == "grid":
+        raise NotImplementedError("corr_method='grid': ops/grid_nn is not ported")
+    raise ValueError(f"unknown corr_method {corr_method!r}")
+
+
+def _gicp_brute(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor, loss: str,
+                gm_k: float, max_iteration: int, relative_fitness: float,
+                relative_rmse: float) -> RegistrationResult:
+    """GICP over brute-force correspondences (pcr_tpu's non-band loop), with
+    the final metrics taken at the converged pose."""
+    src_cov = _regularized_covariances(source)
+    tgt_cov = _regularized_covariances(target)
+
+    def step(T):
+        return gicp_step(source.points, src_cov, source.mask, target.points, tgt_cov,
+                         target.mask, T, max_dist, loss=loss, gm_k=gm_k)
+
+    # the convergence flag is read on the host every iteration, as in the
+    # band loop below
+    T = T0
+    fit_prev, rmse_prev = -1.0, -1.0
+    iters = 0
+    for _ in range(max_iteration):
+        T, fit, rmse, n_corr = step(T)
+        iters += 1
+        done = (((fit - fit_prev).abs() < relative_fitness)
+                & ((rmse - rmse_prev).abs() < relative_rmse)) | (n_corr == 0)
+        fit_prev, rmse_prev = fit, rmse
+        if bool(done):
+            break
+    _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask,
+                                  T, max_dist)
+    fitness, rmse, n_corr = _metrics(valid, d2, source.mask)
+    return RegistrationResult(T, fitness, rmse, n_corr,
+                              torch.tensor(iters, dtype=torch.int32, device=source.device))
 
 
 def _gicp_band_sorted(

@@ -5,6 +5,10 @@ Per scale, coarse to fine, warm-started from the previous scale:
   voxel_down_sample(v_s) -> remove_statistical_outlier(30, 1.0)
   -> estimate_normals(KNN 20) -> GICP(L1, <= 100 iterations,
      rel_fitness = rel_rmse = 1e-6) at search radii [3, 2.5, 2, 1.5, 1] * v_s
+
+Preprocessing is fused by default (``ops/preprocess``, kernels K2 and K3:
+one banded pass, output in sorted-axis order); ``fused=False`` runs the
+unfused chain over k-NN lists (``ops/outlier`` and ``ops/normals``).
 """
 
 from __future__ import annotations
@@ -12,8 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import normals as normals_ops
+from ..ops import outlier as outlier_ops
 from ..ops import preprocess as preprocess_ops
-from ..utils.cloud import Cloud
+from ..ops import voxel as voxel_ops
+from ..utils.cloud import Cloud, compact
 from . import gicp as gicp_mod
 
 
@@ -52,14 +59,29 @@ def radius_from_cloud_pair(source: Cloud, target: Cloud) -> torch.Tensor:
     return (rad(source) + rad(target)) / 2.0
 
 
+def _preprocess_scale(c: Cloud, voxel_size: float, scale_capacity: int | None,
+                      knn_filter: int = 30, std_filter: float = 1.0, normal_k: int = 20,
+                      fused: bool = True) -> Cloud:
+    if fused:
+        return preprocess_ops.preprocess_scale_fused(c, voxel_size, scale_capacity,
+                                                     knn_filter, std_filter, normal_k)
+    d = voxel_ops.voxel_downsample_cloud(c, voxel_size)
+    if scale_capacity is not None and scale_capacity < d.capacity:
+        d = compact(d, scale_capacity)  # voxel output is prefix-compact already
+    d = outlier_ops.remove_statistical_outliers(d, knn_filter, std_filter)
+    return normals_ops.with_normals_knn(d, normal_k)
+
+
 def build_pyramid(c: Cloud, n_scales: int = 5,
-                  scale_capacities: tuple[int, ...] | None = None) -> tuple[Cloud, ...]:
+                  scale_capacities: tuple[int, ...] | None = None,
+                  fused: bool = True) -> tuple[Cloud, ...]:
     """Per-cloud preprocessing pyramid (linear schedule): downsample, filter
     and normals at every scale, computed ONCE per cloud."""
     scales = create_scales(n_scales)
     return tuple(
-        preprocess_ops.preprocess_scale_fused(
-            c, scales[s], None if scale_capacities is None else scale_capacities[s])
+        _preprocess_scale(c, scales[s],
+                          None if scale_capacities is None else scale_capacities[s],
+                          fused=fused)
         for s in range(n_scales))
 
 
@@ -87,7 +109,7 @@ def multiscale_gicp_pyramids(src_pyr: tuple[Cloud, ...], tgt_pyr: tuple[Cloud, .
 def multiscale_gicp(source: Cloud, target: Cloud, T_init, n_scales: int = 5,
                     iterations: int = 100, loss: str = "l1",
                     scale_capacities: tuple[int, ...] | None = None,
-                    schedule: str = "linear") -> gicp_mod.RegistrationResult:
+                    schedule: str = "linear", fused: bool = True) -> gicp_mod.RegistrationResult:
     """M-GICP with the reference's stage-2 defaults (n=5, 100 iters, L1).
 
     ``schedule='linear'`` is the canonical variant; ``'doubling'`` derives the
@@ -108,6 +130,6 @@ def multiscale_gicp(source: Cloud, target: Cloud, T_init, n_scales: int = 5,
     pairs = []
     for s in range(n_scales):
         cap = None if scale_capacities is None else scale_capacities[s]
-        pairs.append((preprocess_ops.preprocess_scale_fused(source, scales[s], cap),
-                      preprocess_ops.preprocess_scale_fused(target, scales[s], cap)))
+        pairs.append((_preprocess_scale(source, scales[s], cap, fused=fused),
+                      _preprocess_scale(target, scales[s], cap, fused=fused)))
     return _run_scales(pairs, dists, T_init, iterations, loss)

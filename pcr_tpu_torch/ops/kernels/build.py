@@ -31,6 +31,7 @@ _F = ctypes.c_float
 # every entry point returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "pcr_nn1_band": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "pcr_nn1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "pcr_outlier_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "pcr_survivor_moments": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "pcr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P],

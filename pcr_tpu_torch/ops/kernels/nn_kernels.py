@@ -1,26 +1,41 @@
-"""K1 — banded 1-NN (CUDA source: ``pcr_tpu_torch/csrc/band_nn.cu``).
+"""K1 — banded 1-NN — and K7 — brute-force 1-NN (CUDA sources:
+``pcr_tpu_torch/csrc/band_nn.cu`` and ``pcr_tpu_torch/csrc/nn1.cu``).
 
-Replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_band_pallas``.  Each tile of
-``q_tile`` sorted queries scans one contiguous slab of ``2*band`` sorted
+K1 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_band_pallas``.  Each tile
+of ``q_tile`` sorted queries scans one contiguous slab of ``2*band`` sorted
 reference rows starting at its element offset ``starts_el[tile]``; the result
 is the exact squared distance of the nearest slab row and its ABSOLUTE sorted
 row (first minimum on ties).
 
-Bound on the H100: issue rate, ~10 ALU ops per (query, slab row) with each
-slab row read once per block from L2.  The kernel keeps one query per thread
-with its running minimum in registers and streams the slab through shared
-memory in block-sized chunks, so the band width does not set the shared
-memory size.  Unlike the TPU kernel it computes d2 directly as (q - r)^2, so
-no re-score is needed for precision.
+K7 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_pallas``: for every query
+the exact squared distance of the nearest row of the whole reference and that
+row (first minimum on ties).  Masked refs are parked at PAD_COORD by the
+caller, so the kernel takes no mask.
+
+Bound on the H100: issue rate, ~10 ALU ops per (query, candidate) pair with
+each candidate row read once per block from L2.  Both kernels keep one query
+per thread with its running minimum in registers and stream the candidates
+through shared memory in fixed-size chunks, so the band width or the ref
+size does not set the shared memory size.  Unlike the TPU kernels they
+compute d2 directly as (q - r)^2, so no re-score is needed for precision.
+K7 also splits the ref rows over several blocks per query tile (too few
+query blocks would leave most SMs idle) and merges the partial minima in a
+second small kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build, common
 
-LAUNCHES = {"nn1_band": 0}
+LAUNCHES = {"nn1_band": 0, "nn1": 0}
+# K7: threads (queries) a block, and the blocks it aims to put on each SM
+NN1_THREADS = 128
+NN1_BLOCKS_PER_SM = 8
+NN1_MIN_SPLIT_ROWS = 2048
 
 
 def nn1_band_reference(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
@@ -59,4 +74,63 @@ def nn1_band(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor, *,
                                out_row.data_ptr(), common.stream_of(q))
     build.check_launch("nn1_band", err)
     LAUNCHES["nn1_band"] += 1
+    return out_d, out_row
+
+
+def nn1_reference(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7: (d2 (nq,) f32, row (nq,) int32), over
+    groups of queries whose (group, nr) distance temporaries stay bounded."""
+    nq, nr = q.shape[0], r.shape[0]
+    d_out = torch.empty(nq, dtype=torch.float32, device=q.device)
+    i_out = torch.empty(nq, dtype=torch.int32, device=q.device)
+    for g in common.tile_groups(nq, nr, budget=1 << 24):
+        dmin, best = torch.min(common.sqdist_tiles(q[None, g], r[None])[0], dim=-1)
+        d_out[g] = dmin
+        i_out[g] = best.to(torch.int32)
+    return d_out, i_out
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def nn1_splits(nq: int, nr: int, sm_count: int) -> int:
+    """How many contiguous ref ranges K7 splits each query block's work into:
+    enough blocks for NN1_BLOCKS_PER_SM a SM, each range at least
+    NN1_MIN_SPLIT_ROWS rows."""
+    q_blocks = -(-nq // NN1_THREADS)
+    want = -(-sm_count * NN1_BLOCKS_PER_SM // q_blocks)
+    return max(1, min(want, nr // NN1_MIN_SPLIT_ROWS))
+
+
+def nn1(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force nearest ref row of every query.
+
+    q: (nq, 3) f32 queries; r: (nr, 3) f32 refs (masked rows parked at
+    PAD_COORD by the caller), nr >= 1.  Returns (exact d2 (nq,) f32, row
+    (nq,) int32), the first minimum on ties.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if r.shape[0] < 1:
+        raise ValueError("nn1 needs at least one ref row")
+    if not common.on_cuda(q, r):
+        return nn1_reference(q, r)
+    common.check(q, "q", torch.float32, (q.shape[0], 3))
+    common.check(r, "r", torch.float32, (r.shape[0], 3))
+    nq, nr = q.shape[0], r.shape[0]
+    out_d = torch.empty(nq, dtype=torch.float32, device=q.device)
+    out_row = torch.empty(nq, dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return out_d, out_row
+    splits = nn1_splits(nq, nr, _sm_count(q.device.index or 0))
+    part_d = torch.empty(splits * nq, dtype=torch.float32, device=q.device)
+    part_row = torch.empty(splits * nq, dtype=torch.int32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.pcr_nn1(q.data_ptr(), r.data_ptr(), nq, nr, splits, part_d.data_ptr(),
+                          part_row.data_ptr(), out_d.data_ptr(), out_row.data_ptr(),
+                          common.stream_of(q))
+    build.check_launch("nn1", err)
+    LAUNCHES["nn1"] += 1
     return out_d, out_row

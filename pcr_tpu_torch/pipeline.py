@@ -5,10 +5,11 @@ Stage contract, kept from the reference: every stage persists poses as
 ``pose_{i+1}_{i}.txt`` / ``pose{i}.txt`` text files and the next stage reloads
 them, so the pipeline is restartable at stage granularity.
 
-Not ported yet: the stage-2 retry ladder (it needs the selection-path FGR
-features), the selection feature path of stage 1, the batched
-(``batch_size > 1``) and mesh branches, stage 3 and the CLI.  Each raises
-``NotImplementedError`` where a run would need it.
+Stage 1 runs on the banded features (``ops/fpfh_sorted``, the default) or
+the selection features (``models/fgr.fgr_features``); stage 2 re-registers a
+pair that fails its fitness gate with the FGR retry ladder (``_retry_pair``).
+Not ported yet: the batched (``batch_size > 1``) and mesh branches, stage 3
+and the CLI.  Each raises ``NotImplementedError`` where a run would need it.
 """
 
 from __future__ import annotations
@@ -39,11 +40,14 @@ class PipelineConfig:
     fgr_seed: int = 0
     mgicp_scales: int = 5
     mgicp_iterations: int = 100
-    # A pair whose refined fitness lands at/below retry_fitness is re-seeded
-    # with FGR at coarser voxels in pcr_tpu; that ladder needs stage 1, so
-    # here such a pair raises unless retry_failed is False.
+    fitness_gate: float = 0.40      # the reference's success gate on gate fitness
+    # Re-registration fallback: a pair whose refined finest-scale fitness
+    # lands at/below retry_fitness is re-seeded with FGR at coarser voxels
+    # (coarse FPFH is far more robust for low-overlap loop closures) and
+    # re-refined; candidates are compared by full-cloud fitness at 2*voxel.
     retry_failed: bool = True
     retry_fitness: float = 0.15
+    retry_voxel_mults: tuple = (2.0, 4.0)
     batch_size: int = 2
     # pairs registered ahead of the oldest result read
     inflight: int = 4
@@ -52,8 +56,8 @@ class PipelineConfig:
     scale_capacities: tuple | str | None = "auto"
     # rounding unit of the per-scan capacity buckets of stage 1
     bucket_granularity: int = 4096
-    # stage-1 features: "banded" (ops/fpfh_sorted, kernels K4-K6); the
-    # reference's "selection" path is not ported
+    # stage-1 features: "banded" (ops/fpfh_sorted, kernels K4-K6) or
+    # "selection" (the k=200 selection + gather path, models/fgr.fgr_features)
     stage1_features: str = "banded"
     stage1_band: int = 2048
     output_root: str = "outputs"
@@ -103,10 +107,13 @@ def _pad_feat(feat, capacity: int):
     return cloud_mod.pad_rows(feat, capacity, 0.0)
 
 
-def _prep_features(c, bucket: int, voxel: float, band: int):
+def _prep_features(c, bucket: int, voxel: float, band: int, features_kind: str = "banded"):
     """Per-scan stage-1 preprocessing: compact to the scan's capacity bucket,
-    then the banded normals + FPFH."""
-    return fpfh_sorted.fgr_features_sorted(cloud_mod.compact(c, bucket), voxel, band=band)
+    then the banded or the selection normals + FPFH."""
+    cc = cloud_mod.compact(c, bucket)
+    if features_kind == "banded":
+        return fpfh_sorted.fgr_features_sorted(cc, voxel, band=band)
+    return fgr_mod.fgr_features(cc, voxel)
 
 
 def _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B: int):
@@ -133,9 +140,8 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     if mesh is not None or cfg.batch_size > 1:
         raise NotImplementedError(
             "only the streamed branch (batch_size=1, no mesh) is ported")
-    if cfg.stage1_features != "banded":
-        raise NotImplementedError(
-            f"stage1_features={cfg.stage1_features!r}: only the banded path is ported")
+    if cfg.stage1_features not in ("banded", "selection"):
+        raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     if clouds is None:
         raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
@@ -148,7 +154,7 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     def features(i):
         if i not in feat_cache:
             feat_cache[i] = _prep_features(clouds[i], buckets[i], cfg.voxel_size,
-                                           cfg.stage1_band)
+                                           cfg.stage1_band, cfg.stage1_features)
         return feat_cache[i]
 
     ckpt = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
@@ -221,6 +227,34 @@ def _flag_stage1_outliers(poses: np.ndarray, metrics: PairMetrics, window: int =
     return count
 
 
+def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
+                seed_base: int = 0):
+    """Re-registration ladder: for each multiplier m, FGR on the full clouds
+    at m*voxel (``registro_fgr``, selection features), then M-GICP over the
+    cached pyramids; candidates are compared by full-cloud fitness at
+    2*voxel (finest-scale fitness is not comparable across seeds at low
+    overlap).  Returns (best result, status)."""
+    eval_dist = 2 * cfg.voxel_size
+
+    def score(T):
+        fit, _, _ = eval_mod.evaluate_registration(src_c, tgt_c, eval_dist, T)
+        return float(fit)
+
+    best_res, best_score, status = res0, score(res0.transformation), "ok"
+    for m in cfg.retry_voxel_mults:
+        res_fgr = fgr_mod.registro_fgr(src_c, tgt_c, m * cfg.voxel_size,
+                                       seed=cfg.fgr_seed + seed_base + 1)
+        cand = ms_mod.multiscale_gicp_pyramids(src_pyr, tgt_pyr, res_fgr.transformation,
+                                               n_scales=cfg.mgicp_scales,
+                                               iterations=cfg.mgicp_iterations)
+        sc = score(cand.transformation)
+        if sc > best_score:
+            best_res, best_score, status = cand, sc, f"retried_voxel_x{m:g}"
+    if float(best_res.fitness) <= cfg.retry_fitness:
+        status += ",low_fitness"
+    return best_res, status
+
+
 def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
                            metrics: PairMetrics) -> np.ndarray:
     """Full-cloud fitness at 2*voxel for every refined pair (band-NN
@@ -246,8 +280,11 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     ``clouds`` is a list of port Clouds (all on one device, which is where
     the run happens); ``init_poses`` (n, 4, 4) or the stage-1 pose files.
     Pairs stream one at a time over per-cloud pyramids that are built once
-    and shared by the two pairs each cloud serves.  Returns (n, 4, 4) f64
-    relative poses and writes them, the absolute chain and the metrics.
+    and shared by the two pairs each cloud serves; pairs whose fitness lands
+    at/below the retry gate are collected and re-registered by the retry
+    ladder in a second pass, so the main loop never stalls on one.  Returns
+    (n, 4, 4) f64 relative poses and writes them, the absolute chain and the
+    metrics.
     """
     if mesh is not None or cfg.batch_size > 1:
         raise NotImplementedError(
@@ -275,6 +312,8 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     # Pipelined loop: register up to cfg.inflight pairs before reading the
     # oldest result, so its device-to-host reads overlap the next pairs' work.
     inflight: list[tuple] = []
+    retries: list[tuple] = []
+    row_of: dict[int, int] = {}
     drained = 0
     last_drain = time.time()
 
@@ -282,16 +321,14 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
         nonlocal drained, last_drain
         k, s, t, res = inflight.pop(0)
         fit = float(res.fitness)
-        if cfg.retry_failed and fit <= cfg.retry_fitness:
-            raise NotImplementedError(
-                f"pair ({s}, {t}) fitness {fit:.4f} <= retry_fitness "
-                f"{cfg.retry_fitness}: the FGR retry ladder is not ported "
-                "(run with retry_failed=False to keep the unretried pose)")
         out[k] = res.transformation.double().cpu().numpy()
+        row_of[k] = len(metrics.rows)
         now = time.time()   # wall-true delta between consecutive reads
         metrics.add("mgicp", s, t, fit, float(res.inlier_rmse), now - last_drain,
                     status="ok", scale_iterations=res.scale_iterations.tolist())
         last_drain = now
+        if cfg.retry_failed and fit <= cfg.retry_fitness:
+            retries.append((k, s, t, res))
         drained = k + 1
         if drained % 50 == 0:  # crash-resumable partial checkpoint
             os.makedirs(os.path.dirname(ckpt), exist_ok=True)
@@ -311,6 +348,18 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
             drain_one()
     while inflight:
         drain_one()
+    for k, s, t, res0 in retries:  # second pass: the retry ladder per failure
+        t0 = time.time()
+        res, status = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s), pyramid(t),
+                                  seed_base=s)
+        out[k] = res.transformation.double().cpu().numpy()
+        metrics.rows[row_of[k]] = dict(
+            stage="mgicp", src=int(s), tgt=int(t), fitness=float(res.fitness),
+            rmse=float(res.inlier_rmse),
+            seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
+            status=status, scale_iterations=res.scale_iterations.tolist())
+        for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
+            del pyr_cache[key]
     _annotate_gate_fitness(cfg, clouds, pairs, out, metrics)
     poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out)
     poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),

@@ -11,10 +11,11 @@ Tolerances:
   * GNC on identical correspondences: 300 f32 Gauss-Newton steps, an LU solve
     in pcr_tpu and a Cholesky solve here, reductions in other orders: poses
     within 1e-4;
-  * the whole stage: the tuple test draws other random numbers in the two
-    packages (torch cannot replay jax.random), so the packages agree
-    statistically: every pair within 0.25 m of ground truth in both, the JAX
-    test's own bound (tests/test_fpfh_sorted.py:97-98).
+  * the whole stage, on the banded and on the selection features: the
+    tuple test draws other random numbers in the two packages (torch cannot
+    replay jax.random), so the packages agree statistically: every pair
+    within 0.25 m of ground truth in both, the JAX test's own bound
+    (tests/test_fpfh_sorted.py:97-98).
 """
 
 import os
@@ -126,12 +127,11 @@ KW = dict(dataset="Facade", voxel_size=VOXEL, batch_size=1, bucket_granularity=2
           stage1_band=512)
 
 
-@pytest.fixture(scope="module")
-def stage1_runs(tmp_path_factory):
+def _stage1_runs(root, features: str):
     scans, gt = bumpy_circuit(np.random.default_rng(1), n_clouds=N_SCANS, n=800, step=0.3)
-    root = tmp_path_factory.mktemp("stage1")
-    cfg_t = t_pipe.PipelineConfig(output_root=str(root / "torch"), **KW)
-    cfg_j = j_pipe.PipelineConfig(output_root=str(root / "jax"), **KW)
+    kw = dict(KW, stage1_features=features)
+    cfg_t = t_pipe.PipelineConfig(output_root=str(root / "torch"), **kw)
+    cfg_j = j_pipe.PipelineConfig(output_root=str(root / "jax"), **kw)
     m_t = t_pipe.PairMetrics()
     out_t = t_pipe.run_stage1_fgr(cfg_t, n=N_SCANS, metrics=m_t, clouds=[
         t_cloud.from_numpy(s, 1024, device="cpu") for s in scans])
@@ -140,9 +140,25 @@ def stage1_runs(tmp_path_factory):
     return cfg_t, out_t, m_t, out_j, gt
 
 
+@pytest.fixture(scope="module")
+def stage1_runs(tmp_path_factory):
+    return _stage1_runs(tmp_path_factory.mktemp("stage1"), "banded")
+
+
 def test_stage1_recovers_poses_like_pcr_tpu(stage1_runs):
     _, out_t, m_t, out_j, gt = stage1_runs
     assert out_t.shape == (N_SCANS, 4, 4) and np.isfinite(out_t).all()
+    for k in range(N_SCANS):
+        _, dt_t = se3.pose_errors(out_t[k], gt[k])
+        _, dt_j = se3.pose_errors(out_j[k], gt[k])
+        assert float(dt_t) < 0.25 and float(dt_j) < 0.25, (k, dt_t, dt_j)
+    assert all(r["fitness"] > 0.3 for r in m_t.rows)
+
+
+def test_stage1_selection_features_recover_poses_like_pcr_tpu(tmp_path):
+    """stage1_features='selection': the exact k=200 selection + gather
+    features (models/fgr.fgr_features) in both packages."""
+    _, out_t, m_t, out_j, gt = _stage1_runs(tmp_path, "selection")
     for k in range(N_SCANS):
         _, dt_t = se3.pose_errors(out_t[k], gt[k])
         _, dt_j = se3.pose_errors(out_j[k], gt[k])
@@ -163,8 +179,11 @@ def test_stage1_writes_pose_files(stage1_runs):
 
 
 def test_stage1_refuses_unported_branches(tmp_path):
+    """The batched branch is not ported, and an unknown feature kind is
+    refused: both raise instead of running something else."""
     clouds = [t_cloud.from_numpy(np.zeros((10, 3), np.float32), 256, device="cpu")] * 2
-    for kw in (dict(batch_size=2), dict(stage1_features="selection")):
+    for kw, exc in ((dict(batch_size=2), NotImplementedError),
+                    (dict(stage1_features="sorted"), ValueError)):
         cfg = t_pipe.PipelineConfig(**dict(KW, output_root=str(tmp_path), **kw))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(exc):
             t_pipe.run_stage1_fgr(cfg, clouds=clouds, n=2)

@@ -131,3 +131,122 @@ def test_gicp_without_correspondences_keeps_pose():
     res = t_gicp.registration_gicp(src, tgt, 0.5, T0)
     assert int(res.iterations) == 1 and float(res.fitness) == 0.0
     torch.testing.assert_close(res.transformation, T0)
+
+
+def test_gicp_step_matches_pcr_tpu(pyramids):
+    """One brute-force step (K7's plain version here, pcr_tpu's nn1_exact)
+    on the same regularized covariances: the updated pose within 1e-5, the
+    metrics at the input pose within 1e-6 (the correspondences are the same:
+    no near-tie is within the brute d2 tolerance at this scale).  The
+    regularization itself agrees within 1e-4: the clamp keeps only the
+    smallest eigenvector, which the closed-form f32 solver places within
+    ~5e-5 on near-isotropic rows."""
+    pyr_s, pyr_t, T0, _ = pyramids
+    s, t = pyr_s[1], pyr_t[1]
+    dist = j_ms.max_correspondence_distances(j_ms.create_scales(2))[1]
+    cs = j_gicp.regularize_covariances(s.covariances)
+    ct = j_gicp.regularize_covariances(t.covariances)
+    out_j = j_gicp.gicp_step(s.points, cs, s.mask, t.points, ct, t.mask,
+                             jnp.asarray(T0, jnp.float32), jnp.float32(dist))
+    ps, pt = _to_port(s), _to_port(t)
+    np.testing.assert_allclose(t_gicp.regularize_covariances(ps.covariances).numpy(),
+                               np.asarray(cs), atol=1e-4)
+    out_t = t_gicp.gicp_step(ps.points, torch.as_tensor(np.array(cs)), ps.mask, pt.points,
+                             torch.as_tensor(np.array(ct)), pt.mask,
+                             torch.as_tensor(T0, dtype=torch.float32), dist)
+    np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]), atol=1e-5)
+    for a, b in zip(out_t[1:], out_j[1:]):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("scale", [0, 1])
+def test_gicp_brute_matches_pcr_tpu(pyramids, scale):
+    """registration_gicp(corr_method='brute') against pcr_tpu's brute loop:
+    poses within 1e-4, iteration counts equal, fitness/rmse within 1e-5."""
+    pyr_s, pyr_t, T0, T_gt = pyramids
+    dist = j_ms.max_correspondence_distances(j_ms.create_scales(2))[scale]
+    res_j = j_gicp._registration_gicp(pyr_s[scale], pyr_t[scale], dist,
+                                      jnp.asarray(T0, jnp.float32), max_iteration=25,
+                                      corr_method="brute")
+    res_t = t_gicp.registration_gicp(_to_port(pyr_s[scale]), _to_port(pyr_t[scale]), dist,
+                                     T0.astype(np.float32), corr_method="brute",
+                                     max_iteration=25)
+    np.testing.assert_allclose(res_t.transformation.double().numpy(),
+                               np.asarray(res_j.transformation, np.float64), atol=1e-4)
+    assert int(res_t.iterations) == int(res_j.iterations) < 25
+    assert abs(float(res_t.fitness) - float(res_j.fitness)) <= 1e-5
+    assert abs(float(res_t.inlier_rmse) - float(res_j.inlier_rmse)) <= 1e-5
+    assert float(res_t.num_correspondences) == float(res_j.num_correspondences)
+
+
+def test_covariances_from_normals_and_dispatch(rng):
+    """The plane-disk covariance of a unit normal equals pcr_tpu's; brute
+    GICP takes it when a cloud has no covariances; 'grid' is not ported."""
+    n = rng.normal(size=(32, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    np.testing.assert_allclose(t_gicp.covariances_from_normals(torch.as_tensor(n)).numpy(),
+                               np.asarray(j_gicp.covariances_from_normals(jnp.asarray(n))),
+                               atol=1e-7)
+    pts = rng.uniform(-1, 1, size=(200, 3)).astype(np.float32)
+    src = t_cloud.from_numpy(pts, 256, device="cpu")
+    src.normals = torch.tensor([0.0, 0.0, 1.0]).expand(256, 3).contiguous()
+    res = t_gicp.registration_gicp(src, src, 0.5, np.eye(4, dtype=np.float32),
+                                   corr_method="brute")
+    assert float(res.fitness) == 1.0 and int(res.iterations) <= 2
+    with pytest.raises(NotImplementedError):
+        t_gicp.registration_gicp(src, src, 0.5, np.eye(4), corr_method="grid")
+    with pytest.raises(ValueError):
+        t_gicp.registration_gicp(src, src, 0.5, np.eye(4), corr_method="kdtree")
+
+
+def _eval_clouds(rng):
+    """tests/test_gicp.py::test_evaluate_band_matches_exact's pair."""
+    pts = rng.uniform(-10, 10, size=(3000, 3)).astype(np.float32)
+    pts[:, 2] *= 0.1
+    shift = pts + rng.normal(size=(3000, 3)).astype(np.float32) * 0.05
+    return pts, shift
+
+
+@pytest.mark.parametrize("method", ["band", "exact"])
+def test_evaluate_and_information_matrix_match(rng, method):
+    """Both methods against pcr_tpu's same method and against the port's
+    exact method, with tests/test_gicp.py:107-123's tolerances: n_corr
+    equal, fitness within 1e-6 and rmse within 1e-5 relative, information
+    matrices within 1e-5 relative (+1e-3)."""
+    from pcr_tpu.models import evaluate as j_eval
+    from pcr_tpu_torch.models import evaluate as t_eval
+
+    pts, shift = _eval_clouds(rng)
+    a_j, b_j = j_cloud.from_numpy(pts, capacity=4096), j_cloud.from_numpy(shift, capacity=4096)
+    a_t = t_cloud.from_numpy(pts, 4096, device="cpu")
+    b_t = t_cloud.from_numpy(shift, 4096, device="cpu")
+    T = np.eye(4, dtype=np.float32)
+    got = t_eval.evaluate_registration(a_t, b_t, 0.2, T, method=method)
+    for ref in (j_eval.evaluate_registration(a_j, b_j, 0.2, T, method=method),
+                t_eval.evaluate_registration(a_t, b_t, 0.2, T, method="exact")):
+        assert float(got[2]) == float(ref[2])
+        np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-6)
+        np.testing.assert_allclose(float(got[1]), float(ref[1]), rtol=1e-5)
+    I_t = t_eval.information_matrix(a_t, b_t, 0.2, T, method=method).numpy()
+    for ref in (j_eval.information_matrix(a_j, b_j, 0.2, T, method=method),
+                t_eval.information_matrix(a_t, b_t, 0.2, T, method="exact")):
+        np.testing.assert_allclose(I_t, np.asarray(ref), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(I_t[3:, 3:], float(got[2]) * np.eye(3), atol=1e-3)
+
+
+def test_evaluate_batches_match_loop(rng):
+    from pcr_tpu_torch.models import evaluate as t_eval
+
+    pts, shift = _eval_clouds(rng)
+    a = t_cloud.from_numpy(pts[:1000], 1024, device="cpu")
+    b = t_cloud.from_numpy(shift[:1000], 1024, device="cpu")
+    Ts = [np.eye(4, dtype=np.float32), t_se3.se3_exp(torch.tensor([0.0, 0, 0.01, 0.02, 0, 0]))]
+    I_b = t_eval.information_matrix_batch([a, b], [b, a], 0.3, Ts, method="exact")
+    fit_b, _, n_b = t_eval.evaluate_registration_batch([a, b], [b, a], 0.3, Ts, method="exact")
+    assert I_b.shape == (2, 6, 6)
+    for k, (s, t) in enumerate([(a, b), (b, a)]):
+        torch.testing.assert_close(I_b[k], t_eval.information_matrix(s, t, 0.3, Ts[k],
+                                                                     method="exact"))
+        assert float(n_b[k]) == float(t_eval.evaluate_registration(s, t, 0.3, Ts[k],
+                                                                   method="exact")[2])
+    assert bool((fit_b > 0.5).all())

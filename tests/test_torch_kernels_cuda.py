@@ -1,4 +1,4 @@
-"""Kernels K1-K6 on the card against their plain PyTorch versions on the
+"""Kernels K1-K7 on the card against their plain PyTorch versions on the
 same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from pcr_tpu_torch.ops import preprocess
+from pcr_tpu_torch.ops import knn, preprocess
 from pcr_tpu_torch.ops.kernels import feature_kernels, nn_kernels
 from pcr_tpu_torch.utils import cloud
 from pcr_tpu_torch.utils.cloud import pad_rows
@@ -136,3 +136,47 @@ def test_spfh_refuses_wrong_dtype(cuda_rng):
     r = torch.zeros(512, 3, device=dev)
     with pytest.raises(TypeError):
         feature_kernels.spfh(starts, q, q, r, r, 0.1, q_tile=256, band=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nr", [(21504, 21504), (1000, 3001), (4097, 70001)])
+def test_nn1_kernel_matches_plain(cuda_rng, nq, nr):
+    """K7: bit-equal distances (the same rounded formula) and equal rows
+    (both keep the first minimum: a block of refs is duplicated further on,
+    so exact ties occur); sentinel rows never win; the wrapper counts its
+    launch once, whatever number of ref splits it used."""
+    dev = torch.device("cuda")
+    r = cuda_rng.uniform(-30, 30, size=(nr, 3)).astype(np.float32)
+    r[nr // 2:nr // 2 + 200] = r[:200]
+    r[-50:] = 1e6
+    q = cuda_rng.uniform(-31, 31, size=(nq, 3)).astype(np.float32)
+    q[:100] = r[:100]
+    r_t, q_t = torch.as_tensor(r, device=dev), torch.as_tensor(q, device=dev)
+    before = nn_kernels.LAUNCHES["nn1"]
+    d_k, i_k = nn_kernels.nn1(q_t, r_t)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["nn1"] == before + 1
+    d_p, i_p = nn_kernels.nn1_reference(q_t, r_t)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert bool((i_k[:100] == torch.arange(100, device=dev, dtype=torch.int32)).all())
+    assert bool((i_k < nr - 50).all())
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_refuses_float64_and_serves_knn(cuda_rng):
+    """A float64 or non-contiguous CUDA input raises instead of running
+    elsewhere; ``knn.nn1`` on CUDA tensors launches K7."""
+    dev = torch.device("cuda")
+    with pytest.raises(TypeError):
+        nn_kernels.nn1(torch.zeros(64, 3, dtype=torch.float64, device=dev),
+                       torch.zeros(64, 3, device=dev))
+    with pytest.raises(ValueError):
+        nn_kernels.nn1(torch.zeros(3, 64, device=dev).T, torch.zeros(64, 3, device=dev))
+    pts = torch.as_tensor(cuda_rng.uniform(-5, 5, size=(500, 3)).astype(np.float32), device=dev)
+    mask = torch.ones(500, dtype=torch.bool, device=dev)
+    mask[::7] = False
+    before = nn_kernels.LAUNCHES["nn1"]
+    d, i = knn.nn1(pts, pts, mask)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["nn1"] == before + 1
+    assert bool(mask[i].all()) and bool((d[mask] == 0).all())
