@@ -11,7 +11,8 @@ Phases (any failure ends the run with a non-zero exit code):
                tensors at every shape and band the main path gives it (each
                pyramid scale, each GICP and final-metrics band, the gate's
                32768-row clouds), prints their agreement and both times
-               (CUDA events, median);
+               (CUDA events, median), and K2's and K3's times at each scale
+               on one line;
   4. slice   — stage 2 (pipeline.run_stage2_mgicp: 5 scales, 100 iterations,
                L1) over a seeded synthetic 8-scan out-and-back circuit at
                NCLT scale whose relative motions and initial-pose errors are
@@ -350,15 +351,18 @@ def check_k1(label: str, src, tgt, T, max_dist: float, band: int):
     return err, ms, plain_ms, *lim
 
 
-def check_k2_k3(label: str, c, voxel_size: float, cap: int):
-    """K2 and K3 against their plain versions on the cloud that
-    ``preprocess_scale_fused(c, voxel_size, cap)`` hands them; returns
-    ((K2 err, ms, plain ms), (K3 err, ms, plain ms)).  K2's found set and tau
-    must be identical and its mean distance within 1e-5 relative; K3's
-    neighbour counts identical and its moments within a summation-order
-    bound."""
-    import torch
+@dataclasses.dataclass
+class PreprocessInputs:
+    """What ``preprocess_scale_fused(c, voxel_size, cap)`` hands K2 and K3
+    (q_tile 1024), K3's survivors and tau taken from K2's plain version."""
+    band: int
+    k2_args: tuple        # (starts, p_q, p_r, spacing hint)
+    k2_plain: tuple       # (mean_d, found, tau) of the plain version
+    k3_args: tuple        # (starts, p_q, p_r, keep_r, tau, center)
+    survivors: int
 
+
+def preprocess_inputs(c, voxel_size: float, cap: int) -> PreprocessInputs:
     from pcr_tpu_torch.ops import preprocess, voxel
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
     from pcr_tpu_torch.utils.cloud import pad_rows
@@ -366,10 +370,24 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
     d = voxel.voxel_downsample_cloud(c, voxel_size)
     points, mask = d.points[:cap], d.mask[:cap]
     band = preprocess._band_width(cap)
-    ps, ms_, p_q, p_r, starts = preprocess.sort_and_tile(points, mask, 1024, band)
+    _, ms_, p_q, p_r, starts = preprocess.sort_and_tile(points, mask, 1024, band)
     k2_args = (starts, p_q, p_r, voxel_size)
-    mean_k, found_k, tau_k = fk.outlier_stats(*k2_args, q_tile=1024, band=band)
     mean_p, found_p, tau_p = fk.outlier_stats_reference(*k2_args, q_tile=1024, band=band)
+    # the survivor gate of outlier_and_normals_sorted (std_ratio 1)
+    stat = ms_ & found_p[:cap]
+    keep = stat & (mean_p[:cap] <= mean_p[:cap][stat].mean() + mean_p[:cap][stat].std())
+    keep_r = pad_rows(keep, p_r.shape[0], False)
+    center = fk.slab_centroids(starts, p_r, band)
+    return PreprocessInputs(band, k2_args, (mean_p, found_p, tau_p),
+                            (starts, p_q, p_r, keep_r, tau_p, center), int(keep.sum()))
+
+
+def check_k2_result(label: str, got, plain) -> float:
+    """K2's found set and tau identical to the plain version's, its mean
+    distance within 1e-5 relative; returns the largest |mean_d error|."""
+    import torch
+
+    (mean_k, found_k, tau_k), (mean_p, found_p, tau_p) = got, plain
     if not torch.equal(found_k, found_p):
         raise AssertionError(f"K2 {label}: found sets differ "
                              f"({int((found_k ^ found_p).sum())})")
@@ -380,7 +398,37 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
     if bool(((mean_k - mean_p).abs() > tol).any()):
         raise AssertionError(f"K2 {label}: mean_d max err "
                              f"{float((mean_k - mean_p).abs().max())}")
-    err2 = float((mean_k - mean_p).abs().max())
+    return float((mean_k - mean_p).abs().max())
+
+
+def check_k3_result(label: str, S_k, S_p) -> float:
+    """K3's neighbour counts identical to the plain version's, its moments
+    within a summation-order bound; returns the largest |moment error|."""
+    import torch
+
+    if not torch.equal(S_k[:, 9], S_p[:, 9]):
+        raise AssertionError(f"K3 {label}: neighbour counts differ")
+    # summation-order bound: ~count * 2^-24 of the sum of |terms|, which the
+    # trace, sqrt(count * trace) and count bound for every column
+    trace = S_p[:, 3] + S_p[:, 6] + S_p[:, 8]
+    tol = 1e-5 * (trace + torch.sqrt(S_p[:, 9] * trace) + S_p[:, 9]) + 1e-6
+    if bool(((S_k - S_p).abs() > tol[:, None]).any()):
+        raise AssertionError(f"K3 {label}: moments max err {float((S_k - S_p).abs().max())}")
+    return float((S_k - S_p).abs().max())
+
+
+def check_k2_k3(label: str, c, voxel_size: float, cap: int):
+    """K2 and K3 against their plain versions on the cloud that
+    ``preprocess_scale_fused(c, voxel_size, cap)`` hands them; returns
+    ((K2 err, ms, plain ms, bound ms, bound by), (the same for K3))."""
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+
+    inp = preprocess_inputs(c, voxel_size, cap)
+    band, k2_args, k3_args = inp.band, inp.k2_args, inp.k3_args
+    starts, p_q, p_r = k2_args[:3]
+    mean_p, found_p, tau_p = inp.k2_plain
+    err2 = check_k2_result(label, fk.outlier_stats(*k2_args, q_tile=1024, band=band),
+                           inp.k2_plain)
     ms2 = cuda_ms(lambda: fk.outlier_stats(*k2_args, q_tile=1024, band=band), 10)
     n_pad, nr_pad = p_q.shape[0], p_r.shape[0]
     lim2 = bound(4 * starts.shape[0] + 12 * n_pad + 12 * nr_pad + 9 * n_pad,
@@ -390,29 +438,14 @@ def check_k2_k3(label: str, c, voxel_size: float, cap: int):
           f"found/tau equal, max |mean_d err| {err2:.3e}, kernel {ms2:.4f} ms, "
           f"plain {plain2:.4f} ms")
 
-    # the survivor gate of outlier_and_normals_sorted (std_ratio 1)
-    stat = ms_ & found_p[:cap]
-    keep = stat & (mean_p[:cap] <= mean_p[:cap][stat].mean() + mean_p[:cap][stat].std())
-    keep_r = pad_rows(keep, p_r.shape[0], False)
-    center = fk.slab_centroids(starts, p_r, band)
-    k3_args = (starts, p_q, p_r, keep_r, tau_p, center)
-    S_k = fk.survivor_moments(*k3_args, q_tile=1024, band=band)
     S_p = fk.survivor_moments_reference(*k3_args, q_tile=1024, band=band)
-    if not torch.equal(S_k[:, 9], S_p[:, 9]):
-        raise AssertionError(f"K3 {label}: neighbour counts differ")
-    # summation-order bound: ~count * 2^-24 of the sum of |terms|, which the
-    # trace, sqrt(count * trace) and count bound for every column
-    trace = S_p[:, 3] + S_p[:, 6] + S_p[:, 8]
-    tol = 1e-5 * (trace + torch.sqrt(S_p[:, 9] * trace) + S_p[:, 9]) + 1e-6
-    if bool(((S_k - S_p).abs() > tol[:, None]).any()):
-        raise AssertionError(f"K3 {label}: moments max err {float((S_k - S_p).abs().max())}")
-    err3 = float((S_k - S_p).abs().max())
+    err3 = check_k3_result(label, fk.survivor_moments(*k3_args, q_tile=1024, band=band), S_p)
     ms3 = cuda_ms(lambda: fk.survivor_moments(*k3_args, q_tile=1024, band=band), 10)
     lim3 = bound(16 * starts.shape[0] + 12 * n_pad + 13 * nr_pad + 44 * n_pad,
                  9.0 * n_pad * 2 * band + 19.0 * float(S_p[:, 9].sum()))
     plain3 = cuda_ms(lambda: fk.survivor_moments_reference(*k3_args, q_tile=1024,
                                                            band=band), 3)
-    print(f"K3 survivor_moments {label}: {cap} rows, band {band}, {int(keep.sum())} "
+    print(f"K3 survivor_moments {label}: {cap} rows, band {band}, {inp.survivors} "
           f"survivors, counts equal, max |moment err| {err3:.3e}, kernel {ms3:.4f} ms, "
           f"plain {plain3:.4f} ms")
     return (err2, ms2, plain2, *lim2), (err3, ms3, plain3, *lim3)
@@ -451,6 +484,9 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
         r2, r3 = check_k2_k3(f"scale {v:.1f} m", tgt, v, cap)
         k2.append(r2)
         k3.append(r3)
+    print("K2/K3 ms by scale: " + "; ".join(
+        f"{v:.1f} m ({cap} rows) {a[1]:.4f} / {b[1]:.4f}"
+        for v, cap, a, b in zip(scales, caps, k2, k3)))
 
     src_pyr = multiscale.build_pyramid(src, len(scales), caps)
     tgt_pyr = multiscale.build_pyramid(tgt, len(scales), caps)

@@ -7,113 +7,201 @@
 //
 // Both reduce over one slab: the 2*band sorted rows starting at
 // starts[tile] (element offset, computed once by the wrapper) for every
-// query of a q_tile-row tile.  The TPU kernels cache the (TQ, 2*band) d2
-// tile in VMEM across the 10 bisection steps; on the H100 that tile would
-// not fit in shared memory (227 KB per block), so each thread recomputes
-// its query's distances in every step (3 subtractions, 3 products, 2 adds
-// per slab row).  Bound: issue rate — a query costs ~12 passes over 2*band
-// rows and reads nothing but the slab, which the block holds in shared
-// memory (24 KB for K2, 32 KB for K3 at band 1024).  Counting passes stop
-// as soon as the count reaches k, which changes no result.
+// query of a q_tile-row tile, and both find their threshold by a 10-step
+// bisection of a count (K2 in log space for the k1-th nearest row, K3
+// linearly for the normal_k-th nearest survivor), then sum over the rows at
+// d2 <= tau.  The TPU kernels keep the (TQ, 2*band) d2 tile in VMEM through
+// the 10 steps; that tile does not fit in an SM's shared memory, so d2 is
+// recomputed from the slab in every pass.  Bound: issue rate (about 15
+// instructions a (query, row) pair a pass, against a few bytes a query).
+//
+// Design for the H100:
+//  * A team of kTeam lanes shares one query and splits its slab (lane l
+//    takes rows l, l + kTeam, ...), so a block of kWarps warps works on
+//    kWarps * 32 / kTeam queries of one tile at once and the finest stage-2
+//    scale puts tens of warps on every SM (one thread a query gave ~5).
+//    Counts combine with __reduce_add_sync (exact in any order, so tau is
+//    the plain version's bit for bit); float sums with a butterfly of
+//    shuffles in a fixed order, so they are deterministic.
+//  * Several bisection levels a pass: the thresholds of a bisection form a
+//    fixed binary tree below (lo, hi), so one pass counts the slab against
+//    the 2^kLevels - 1 thresholds of the next kLevels levels and then walks
+//    those levels from the counts (pcr::subtree_mids, pcr::walk_levels):
+//    ceil(10 / kLevels) passes instead of 10.  Each threshold is computed by
+//    the serial walk's own f32 operations (0.5f * (lo + hi), then expf for
+//    K2) and each step takes the serial walk's >= k decision, so the result
+//    is the serial walk's tau.
+//  * The block stages its slab once as float4 rows (x, y, z, w), packed while
+//    staging; K3 puts the survivor flag in w (1.0f or 0.0f).  One 16-byte
+//    shared load a row a pass.  A row that does not count gets d2 = NaN,
+//    which fails every <= test.  The d2 < kRealD2Max sentinel test is
+//    dropped where no threshold can reach kRealD2Max: for K2 checked on the
+//    host from the top bound, for K3 per query from its top 4*tau + 1e-6
+//    (the branch is uniform over the team).  No pass stops early once a
+//    count reaches k: a team runs to its slowest lane, and the low
+//    thresholds never reach k.
+//  * Not used: cp.async / TMA staging (the slab is read once a block and
+//    used by every query of the block in every pass: staging is a few
+//    percent of the work, and the other resident blocks overlap it), and
+//    tensor cores (d2 must be the plain version's rounded f32
+//    ((dx*dx + dy*dy) + dz*dz) for tau to stay bit-equal; a TF32 or bf16
+//    product reorders d2 at LiDAR coordinates).
 #include <cuda_runtime.h>
+#include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
 using pcr::kBisectSteps;
-using pcr::launch_threads;
+using pcr::kRealD2Max;
 using pcr::reserve_smem;
-using pcr::tile_start;
 
-__global__ void outlier_stats_kernel(const int* __restrict__ starts,
-                                     const float* __restrict__ q,
-                                     const float* __restrict__ r, int q_tile,
-                                     int band, int k1, float log_lo,
-                                     float log_hi, float* __restrict__ mean_d,
-                                     unsigned char* __restrict__ found,
-                                     float* __restrict__ tau_out) {
-  extern __shared__ float smem[];
-  const int slab = 2 * band;
-  float* sx = smem;
-  float* sy = smem + slab;
-  float* sz = smem + 2 * slab;
-  const int start = tile_start(starts, q_tile);
-  pcr::stage_slab(r, 3, start, slab, smem);
-  __syncthreads();
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
+// Chosen on the H100 by tools/tune_preprocess.py (PERF.md).
+constexpr int kTeam = 32;            // lanes a query
+constexpr int kWarps = 8;            // warps a block
+constexpr int kQueriesPerTeam = 1;   // queries a team takes in turn
+constexpr int kLevels = 2;           // bisection levels a pass
 
-  // log-space count-CDF bisection for the k1-th nearest (self included)
-  const float tau = pcr::log_bisect_tau(qx, qy, qz, sx, sy, sz, slab, k1, log_lo, log_hi);
-  int cnt = 0;
-  float sum_d = 0.0f;
-  for (int k = 0; k < slab; ++k) {
-    const float d = pcr::sqdist(qx, qy, qz, sx[k], sy[k], sz[k]);
-    if (d < pcr::kRealD2Max && d <= tau) {
-      ++cnt;
-      sum_d = __fadd_rn(sum_d, __fsqrt_rn(fmaxf(d, 0.0f)));
-    }
+template <int TEAM, int WARPS, int QPT>
+struct Geometry {
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kTeams = kThreads / TEAM;
+  static constexpr int kQueries = kTeams * QPT;   // queries a block
+};
+
+// Stage the slab rows [start, start + slab) as float4 (x, y, z, w); w is
+// the survivor flag where KEEP, else 0.
+template <bool KEEP>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ r,
+                                           const unsigned char* __restrict__ keep,
+                                           int start, int slab, float4* s4) {
+  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
+    const float* row = r + 3 * static_cast<size_t>(start + j);
+    float w = 0.0f;
+    if constexpr (KEEP) w = keep[start + j] ? 1.0f : 0.0f;
+    s4[j] = make_float4(row[0], row[1], row[2], w);
   }
-  mean_d[qi] = __fdiv_rn(sum_d, static_cast<float>(max(cnt - 1, 1)));  // self = 0
-  found[qi] = cnt >= k1 ? 1 : 0;
-  tau_out[qi] = tau;
 }
 
-__global__ void survivor_moments_kernel(const int* __restrict__ starts,
-                                        const float* __restrict__ q,
-                                        const float* __restrict__ r,
-                                        const unsigned char* __restrict__ keep,
-                                        const float* __restrict__ tau0,
-                                        const float* __restrict__ center,
-                                        int q_tile, int band, int normal_k,
-                                        float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int slab = 2 * band;
-  float* sx = smem;
-  float* sy = smem + slab;
-  float* sz = smem + 2 * slab;
-  float* sk = smem + 3 * slab;
-  const int start = tile_start(starts, q_tile);
-  pcr::stage_slab(r, 3, start, slab, smem);
-  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
-    sk[j] = keep[start + j] ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
+// d2 of the query to slab row p, or NaN where the row does not count: a
+// non-survivor (KEEP and p.w == 0) or, where CHECK, a sentinel pair.
+template <bool CHECK, bool KEEP>
+__device__ __forceinline__ float counted_d2(float qx, float qy, float qz, float4 p) {
+  const float d = pcr::sqdist(qx, qy, qz, p.x, p.y, p.z);
+  bool ok = true;
+  if constexpr (KEEP) ok = p.w != 0.0f;
+  if constexpr (CHECK) ok = ok && d < kRealD2Max;
+  return ok ? d : __int_as_float(0x7fffffff);
+}
 
-  // linear bisection on [0, 4*tau_out + 1e-6] for the normal_k-th survivor
-  float lo = 0.0f;
-  float hi = __fadd_rn(__fmul_rn(4.0f, tau0[qi]), 1e-6f);
-  for (int s = 0; s < kBisectSteps; ++s) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int c = 0;
-    for (int k = 0; k < slab && c < normal_k; ++k) {
-      const float d = pcr::sqdist(qx, qy, qz, sx[k], sy[k], sz[k]);
-      c += (sk[k] != 0.0f) & (d < pcr::kRealD2Max) & (d <= mid);
-    }
-    if (c >= normal_k) {
-      hi = mid;
-    } else {
-      lo = mid;
-    }
-  }
-  const float tau = hi;
-
-  // moments [x y z | xx xy xz yy yz zz | count] centred on the slab centroid
-  const int tile = (blockIdx.x * blockDim.x) / q_tile;
-  const float cx = center[3 * tile], cy = center[3 * tile + 1],
-              cz = center[3 * tile + 2];
-  float acc[10];
+// One pass: count the team's slab rows at d2 <= each threshold of the next
+// R levels below (lo, hi) (exp of the midpoint where LOG), then walk them.
+template <int TEAM, int R, bool LOG, bool CHECK, bool KEEP>
+__device__ __forceinline__ void count_levels(const float4* s4, int slab, int lane,
+                                             unsigned mask, float qx, float qy, float qz,
+                                             int k, float& lo, float& hi) {
+  constexpr int M = (1 << R) - 1;
+  float mid[M], t[M];
+  int cnt[M];
+  pcr::subtree_mids<R>(lo, hi, mid);
 #pragma unroll
-  for (int f = 0; f < 10; ++f) acc[f] = 0.0f;
-  for (int k = 0; k < slab; ++k) {
-    const float d = pcr::sqdist(qx, qy, qz, sx[k], sy[k], sz[k]);
-    if (sk[k] != 0.0f && d < pcr::kRealD2Max && d <= tau) {
-      const float bx = __fsub_rn(sx[k], cx);
-      const float by = __fsub_rn(sy[k], cy);
-      const float bz = __fsub_rn(sz[k], cz);
+  for (int n = 0; n < M; ++n) {
+    t[n] = LOG ? expf(mid[n]) : mid[n];
+    cnt[n] = 0;
+  }
+#pragma unroll 4
+  for (int j = lane; j < slab; j += TEAM) {
+    const float d = counted_d2<CHECK, KEEP>(qx, qy, qz, s4[j]);
+#pragma unroll
+    for (int n = 0; n < M; ++n) cnt[n] += d <= t[n];
+  }
+#pragma unroll
+  for (int n = 0; n < M; ++n) cnt[n] = __reduce_add_sync(mask, cnt[n]);
+  pcr::walk_levels<R>(cnt, mid, k, lo, hi);
+}
+
+// The whole 10-step bisection, LEVELS levels a pass (the last pass takes
+// what is left).
+template <int TEAM, int LEVELS, bool LOG, bool CHECK, bool KEEP, int DONE = 0>
+__device__ __forceinline__ void bisect(const float4* s4, int slab, int lane, unsigned mask,
+                                       float qx, float qy, float qz, int k, float& lo,
+                                       float& hi) {
+  constexpr int R = LEVELS < kBisectSteps - DONE ? LEVELS : kBisectSteps - DONE;
+  count_levels<TEAM, R, LOG, CHECK, KEEP>(s4, slab, lane, mask, qx, qy, qz, k, lo, hi);
+  if constexpr (DONE + R < kBisectSteps) {
+    bisect<TEAM, LEVELS, LOG, CHECK, KEEP, DONE + R>(s4, slab, lane, mask, qx, qy, qz, k,
+                                                      lo, hi);
+  }
+}
+
+template <int TEAM, int WARPS, int QPT, int LEVELS, bool CHECK>
+__global__ void __launch_bounds__(32 * WARPS)
+    outlier_stats_kernel(const int* __restrict__ starts, const float* __restrict__ q,
+                         const float* __restrict__ r, int q_tile, int band, int k1,
+                         float log_lo, float log_hi, float* __restrict__ mean_d,
+                         unsigned char* __restrict__ found, float* __restrict__ tau_out) {
+  using G = Geometry<TEAM, WARPS, QPT>;
+  extern __shared__ float4 s4[];
+  const int slab = 2 * band;
+  const int per_tile = (q_tile + G::kQueries - 1) / G::kQueries;
+  const int tile = blockIdx.x / per_tile;
+  stage_rows<false>(r, nullptr, starts[tile], slab, s4);
+  __syncthreads();
+  const int team = threadIdx.x / TEAM, lane = threadIdx.x % TEAM;
+  const unsigned mask = pcr::team_mask<TEAM>();
+  for (int u = 0; u < QPT; ++u) {
+    const int local = (blockIdx.x % per_tile) * G::kQueries + u * G::kTeams + team;
+    if (local >= q_tile) break;                      // the same for the whole team
+    const int qi = tile * q_tile + local;
+    const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
+
+    // log-space count-CDF bisection for the k1-th nearest (self included)
+    float llo = log_lo, lhi = log_hi;
+    bisect<TEAM, LEVELS, true, CHECK, false>(s4, slab, lane, mask, qx, qy, qz, k1, llo, lhi);
+    const float tau = expf(lhi);
+    int cnt = 0;
+    float sum_d = 0.0f;
+    for (int j = lane; j < slab; j += TEAM) {
+      const float d = counted_d2<CHECK, false>(qx, qy, qz, s4[j]);
+      if (d <= tau) {
+        ++cnt;
+        sum_d = __fadd_rn(sum_d, __fsqrt_rn(fmaxf(d, 0.0f)));
+      }
+    }
+    cnt = __reduce_add_sync(mask, cnt);
+    sum_d = pcr::team_sum<TEAM>(sum_d, mask);
+    if (lane == 0) {
+      mean_d[qi] = __fdiv_rn(sum_d, static_cast<float>(max(cnt - 1, 1)));  // self = 0
+      found[qi] = cnt >= k1 ? 1 : 0;
+      tau_out[qi] = tau;
+    }
+  }
+}
+
+// K3 for one query: the linear bisection on [0, hi] for the normal_k-th
+// survivor, then the moments [x y z | xx xy xz yy yz zz | count] of the
+// survivors at d2 <= tau, centred on (cx, cy, cz).
+template <int TEAM, int LEVELS, bool CHECK>
+__device__ __forceinline__ void survivor_query(const float4* s4, int slab, int lane,
+                                               unsigned mask, float qx, float qy, float qz,
+                                               float hi, float cx, float cy, float cz,
+                                               int normal_k, float* __restrict__ out) {
+  float lo = 0.0f;
+  bisect<TEAM, LEVELS, false, CHECK, true>(s4, slab, lane, mask, qx, qy, qz, normal_k, lo,
+                                           hi);
+  const float tau = hi;
+  float acc[9];
+#pragma unroll
+  for (int f = 0; f < 9; ++f) acc[f] = 0.0f;
+  int cnt = 0;
+  for (int j = lane; j < slab; j += TEAM) {
+    const float4 p = s4[j];
+    const float d = counted_d2<CHECK, true>(qx, qy, qz, p);
+    if (d <= tau) {
+      const float bx = __fsub_rn(p.x, cx);
+      const float by = __fsub_rn(p.y, cy);
+      const float bz = __fsub_rn(p.z, cz);
       acc[0] = __fadd_rn(acc[0], bx);
       acc[1] = __fadd_rn(acc[1], by);
       acc[2] = __fadd_rn(acc[2], bz);
@@ -123,29 +211,104 @@ __global__ void survivor_moments_kernel(const int* __restrict__ starts,
       acc[6] = __fadd_rn(acc[6], __fmul_rn(by, by));
       acc[7] = __fadd_rn(acc[7], __fmul_rn(by, bz));
       acc[8] = __fadd_rn(acc[8], __fmul_rn(bz, bz));
-      acc[9] = __fadd_rn(acc[9], 1.0f);
+      ++cnt;
     }
   }
+  cnt = __reduce_add_sync(mask, cnt);
 #pragma unroll
-  for (int f = 0; f < 10; ++f) out[10 * static_cast<size_t>(qi) + f] = acc[f];
+  for (int f = 0; f < 9; ++f) acc[f] = pcr::team_sum<TEAM>(acc[f], mask);
+  if (lane == 0) {
+#pragma unroll
+    for (int f = 0; f < 9; ++f) out[f] = acc[f];
+    out[9] = static_cast<float>(cnt);
+  }
+}
+
+template <int TEAM, int WARPS, int QPT, int LEVELS>
+__global__ void __launch_bounds__(32 * WARPS)
+    survivor_moments_kernel(const int* __restrict__ starts, const float* __restrict__ q,
+                            const float* __restrict__ r,
+                            const unsigned char* __restrict__ keep,
+                            const float* __restrict__ tau0, const float* __restrict__ center,
+                            int q_tile, int band, int normal_k, float* __restrict__ out) {
+  using G = Geometry<TEAM, WARPS, QPT>;
+  extern __shared__ float4 s4[];
+  const int slab = 2 * band;
+  const int per_tile = (q_tile + G::kQueries - 1) / G::kQueries;
+  const int tile = blockIdx.x / per_tile;
+  stage_rows<true>(r, keep, starts[tile], slab, s4);
+  __syncthreads();
+  const int team = threadIdx.x / TEAM, lane = threadIdx.x % TEAM;
+  const unsigned mask = pcr::team_mask<TEAM>();
+  const float cx = center[3 * tile], cy = center[3 * tile + 1], cz = center[3 * tile + 2];
+  for (int u = 0; u < QPT; ++u) {
+    const int local = (blockIdx.x % per_tile) * G::kQueries + u * G::kTeams + team;
+    if (local >= q_tile) break;                      // the same for the whole team
+    const int qi = tile * q_tile + local;
+    const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
+    const float hi = __fadd_rn(__fmul_rn(4.0f, tau0[qi]), 1e-6f);
+    float* o = out + 10 * static_cast<size_t>(qi);
+    // below kRealD2Max no threshold admits a sentinel pair (NaN: checked)
+    if (hi < kRealD2Max) {
+      survivor_query<TEAM, LEVELS, false>(s4, slab, lane, mask, qx, qy, qz, hi, cx, cy, cz,
+                                          normal_k, o);
+    } else {
+      survivor_query<TEAM, LEVELS, true>(s4, slab, lane, mask, qx, qy, qz, hi, cx, cy, cz,
+                                         normal_k, o);
+    }
+  }
+}
+
+// Blocks of one tile's queries: ceil(q_tile / queries a block) of them a tile.
+template <int TEAM, int WARPS, int QPT>
+int blocks_for(int n_pad, int q_tile) {
+  using G = Geometry<TEAM, WARPS, QPT>;
+  return (n_pad / q_tile) * ((q_tile + G::kQueries - 1) / G::kQueries);
+}
+
+template <int TEAM, int WARPS, int QPT, int LEVELS>
+int launch_outlier_stats(const int* starts, const float* q, const float* r, int n_pad,
+                         int q_tile, int band, int k1, float log_lo, float log_hi,
+                         float* mean_d, unsigned char* found, float* tau_out,
+                         cudaStream_t stream) {
+  // Every threshold is at most ~expf(log_hi): below kRealD2Max (with a
+  // margin far above expf's error) no threshold admits a sentinel pair.
+  const bool check = !(log_hi < logf(kRealD2Max) - 1e-3f);
+  auto kernel = check ? &outlier_stats_kernel<TEAM, WARPS, QPT, LEVELS, true>
+                      : &outlier_stats_kernel<TEAM, WARPS, QPT, LEVELS, false>;
+  const size_t smem = sizeof(float4) * 2 * static_cast<size_t>(band);
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks_for<TEAM, WARPS, QPT>(n_pad, q_tile), 32 * WARPS, smem, stream>>>(
+      starts, q, r, q_tile, band, k1, log_lo, log_hi, mean_d, found, tau_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TEAM, int WARPS, int QPT, int LEVELS>
+int launch_survivor_moments(const int* starts, const float* q, const float* r,
+                            const unsigned char* keep, const float* tau0,
+                            const float* center, int n_pad, int q_tile, int band,
+                            int normal_k, float* out, cudaStream_t stream) {
+  auto kernel = &survivor_moments_kernel<TEAM, WARPS, QPT, LEVELS>;
+  const size_t smem = sizeof(float4) * 2 * static_cast<size_t>(band);
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks_for<TEAM, WARPS, QPT>(n_pad, q_tile), 32 * WARPS, smem, stream>>>(
+      starts, q, r, keep, tau0, center, q_tile, band, normal_k, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The wrapper guarantees q_tile < 128 or q_tile % 128 == 0, and
-// n_pad % q_tile == 0; starts[t] + 2*band never exceeds the ref rows.
+// The wrapper guarantees n_pad % q_tile == 0; starts[t] + 2*band never
+// exceeds the ref rows.
 extern "C" int pcr_outlier_stats(const int* starts, const float* q,
                                  const float* r, int n_pad, int q_tile,
                                  int band, int k1, float log_lo, float log_hi,
                                  float* mean_d, unsigned char* found,
                                  float* tau_out, cudaStream_t stream) {
-  const int threads = launch_threads(q_tile);
-  const size_t smem = sizeof(float) * 3 * 2 * static_cast<size_t>(band);
-  cudaError_t err = reserve_smem(outlier_stats_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  outlier_stats_kernel<<<n_pad / threads, threads, smem, stream>>>(
-      starts, q, r, q_tile, band, k1, log_lo, log_hi, mean_d, found, tau_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_outlier_stats<kTeam, kWarps, kQueriesPerTeam, kLevels>(
+      starts, q, r, n_pad, q_tile, band, k1, log_lo, log_hi, mean_d, found, tau_out, stream);
 }
 
 extern "C" int pcr_survivor_moments(const int* starts, const float* q,
@@ -154,11 +317,6 @@ extern "C" int pcr_survivor_moments(const int* starts, const float* q,
                                     int n_pad, int q_tile, int band,
                                     int normal_k, float* out,
                                     cudaStream_t stream) {
-  const int threads = launch_threads(q_tile);
-  const size_t smem = sizeof(float) * 4 * 2 * static_cast<size_t>(band);
-  cudaError_t err = reserve_smem(survivor_moments_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  survivor_moments_kernel<<<n_pad / threads, threads, smem, stream>>>(
-      starts, q, r, keep, tau0, center, q_tile, band, normal_k, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_survivor_moments<kTeam, kWarps, kQueriesPerTeam, kLevels>(
+      starts, q, r, keep, tau0, center, n_pad, q_tile, band, normal_k, out, stream);
 }

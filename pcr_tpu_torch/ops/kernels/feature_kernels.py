@@ -16,8 +16,10 @@ those neighbours, centred on the tile's slab centroid.
 
 Bound on the H100: issue rate.  The TPU kernels keep the (TQ, 2*band) d2
 tile resident in VMEM through all 10 bisection steps; that tile does not fit
-in a block's shared memory, so one thread per query recomputes its distances
-in every step from the slab, which the block holds in shared memory.  The
+in a block's shared memory, so the kernels recompute distances from the slab,
+which the block holds in shared memory: a warp shares one query, and each
+pass over the slab counts two bisection levels (the header of preprocess.cu
+says how tau stays the serial walk's, bit for bit).  The
 plain versions below follow the XLA ``spacing_hint`` branch of
 ``pcr_tpu/ops/preprocess._outlier_and_normals_sorted`` and share the
 kernels' slabs and d2 formula, so the two differ only in summation order.

@@ -44,31 +44,54 @@ def test_nn1_band_kernel_matches_plain(cuda_rng, band, q_tile):
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
 
 
-@pytest.mark.cuda
-def test_preprocess_kernels_match_plain(cuda_rng):
-    """K2 and K3: the d2 formula and the bisection are the same, so found,
-    tau and the neighbour counts are equal; sums differ only in order
-    (f32, 1e-5 relative)."""
-    dev = torch.device("cuda")
-    pts = cuda_rng.uniform(-10, 10, size=(8000, 3)).astype(np.float32)
+def _preprocess_cloud(rng, kind: str):
+    """(points (8000, 3), spacing hint): a wavy 20 m patch; ``sparse``
+    spreads 6000 of the points over 160 m with a 0.02 m hint, so that most
+    rows lack 31 slab neighbours within 100 * hint (found false) while the
+    dense 2000 have them; ``duplicated`` repeats 2000 rows exactly (d2 ties,
+    d2 = 0 between distinct rows)."""
+    pts = rng.uniform(-10, 10, size=(8000, 3)).astype(np.float32)
     pts[:, 2] = 0.3 * np.sin(pts[:, 0])
+    if kind == "sparse":
+        pts[2000:] *= 8.0
+        return pts, 0.02
+    if kind == "duplicated":
+        pts[4000:6000] = pts[:2000]
+    return pts, 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["surface", "sparse", "duplicated"])
+@pytest.mark.parametrize("q_tile", [1024, 256])
+@pytest.mark.parametrize("band", [256, 512, 1024])
+def test_preprocess_kernels_match_plain(cuda_rng, band, q_tile, kind):
+    """K2 and K3: the d2 formula and the bisection thresholds are the same,
+    so found, tau and the neighbour counts are equal; sums differ only in
+    order (f32, 1e-5 relative).  Each wrapper counts one launch a call."""
+    dev = torch.device("cuda")
+    pts, hint = _preprocess_cloud(cuda_rng, kind)
     c = cloud.from_numpy(pts, 8192, device=dev)
-    band = 512
-    _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, 1024, band)
-    mean_k, found_k, tau_k = feature_kernels.outlier_stats(starts, p_q, p_r, 0.1,
-                                                           q_tile=1024, band=band)
+    _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, q_tile, band)
+    before = dict(feature_kernels.LAUNCHES)
+    mean_k, found_k, tau_k = feature_kernels.outlier_stats(starts, p_q, p_r, hint,
+                                                           q_tile=q_tile, band=band)
     mean_p, found_p, tau_p = feature_kernels.outlier_stats_reference(
-        starts, p_q, p_r, 0.1, q_tile=1024, band=band)
+        starts, p_q, p_r, hint, q_tile=q_tile, band=band)
     assert torch.equal(found_k, found_p) and torch.equal(tau_k, tau_p)
     torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=1e-7)
+    n_found = int(found_p[:8000].sum())
+    assert 0 < n_found < 4000 if kind == "sparse" else n_found > 7000
     keep = ms & found_p[:8192]
     keep_r = torch.cat([keep, torch.zeros(p_r.shape[0] - 8192, dtype=torch.bool, device=dev)])
     center = feature_kernels.slab_centroids(starts, p_r, band)
     args = (starts, p_q, p_r, keep_r, tau_p, center)
-    S_k = feature_kernels.survivor_moments(*args, q_tile=1024, band=band)
-    S_p = feature_kernels.survivor_moments_reference(*args, q_tile=1024, band=band)
+    S_k = feature_kernels.survivor_moments(*args, q_tile=q_tile, band=band)
+    S_p = feature_kernels.survivor_moments_reference(*args, q_tile=q_tile, band=band)
     assert torch.equal(S_k[:, 9], S_p[:, 9])
     torch.testing.assert_close(S_k, S_p, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    for name in ("outlier_stats", "survivor_moments"):
+        assert feature_kernels.LAUNCHES[name] == before[name] + 1
 
 
 @pytest.mark.cuda
