@@ -2,12 +2,13 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace pcr {
 
 // Any query-candidate pair with d2 above this involves a PAD_COORD sentinel.
 constexpr float kRealD2Max = 1.0e10f;
-// Threads per block of the slab kernels (one thread per query).
+// Threads per block of the one-thread-a-query slab kernel K6.
 constexpr int kMaxThreads = 128;
 constexpr int kBisectSteps = 10;
 
@@ -40,34 +41,9 @@ __device__ __forceinline__ void stage_slab(const float* __restrict__ src, int co
   }
 }
 
-// Log-space count-CDF bisection on [exp(log_lo), exp(log_hi)]: the least
-// bisection threshold with at least k real slab rows at d2 <= threshold.
-// Each counting pass stops once the count reaches k, which changes no result.
-__device__ __forceinline__ float log_bisect_tau(float qx, float qy, float qz,
-                                                const float* sx, const float* sy,
-                                                const float* sz, int slab, int k,
-                                                float log_lo, float log_hi) {
-  float llo = log_lo, lhi = log_hi;
-  for (int s = 0; s < kBisectSteps; ++s) {
-    const float lmid = __fmul_rn(0.5f, __fadd_rn(llo, lhi));
-    const float t = expf(lmid);
-    int c = 0;
-    for (int j = 0; j < slab && c < k; ++j) {
-      const float d = sqdist(qx, qy, qz, sx[j], sy[j], sz[j]);
-      c += (d < kRealD2Max) & (d <= t);
-    }
-    if (c >= k) {
-      lhi = lmid;
-    } else {
-      llo = lmid;
-    }
-  }
-  return expf(lhi);
-}
-
-// The helpers below serve K2 and K3 (csrc/preprocess.cu), where a team of
-// TEAM lanes shares one query and several bisection levels are counted in
-// one pass over the slab.
+// The helpers below serve K2 and K3 (csrc/preprocess.cu) and K4 and K5
+// (csrc/fpfh.cu), where a team of TEAM lanes shares one query and several
+// bisection levels are counted in one pass over the slab.
 
 // The lanes of the calling thread's team: TEAM consecutive lanes of its warp.
 template <int TEAM>
@@ -142,6 +118,171 @@ __device__ __forceinline__ void walk_levels(const int (&cnt)[(1 << R) - 1],
       lo = m;
       n = 2 * n + 2;
     }
+  }
+}
+
+// A block of WARPS warps in teams of TEAM lanes; a team takes QPT queries of
+// its block's tile in turn.
+template <int TEAM, int WARPS, int QPT>
+struct Geometry {
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kTeams = kThreads / TEAM;
+  static constexpr int kQueries = kTeams * QPT;   // queries a block
+};
+
+// Blocks of one tile's queries: ceil(q_tile / queries a block) of them a tile.
+template <int TEAM, int WARPS, int QPT>
+int blocks_for(int n_pad, int q_tile) {
+  using G = Geometry<TEAM, WARPS, QPT>;
+  return (n_pad / q_tile) * ((q_tile + G::kQueries - 1) / G::kQueries);
+}
+
+// Whether a log bisection up to log_hi needs the d2 < kRealD2Max test: every
+// threshold is at most ~expf(log_hi), and below kRealD2Max (with a margin far
+// above expf's error) no threshold admits a sentinel pair.
+inline bool needs_sentinel_check(float log_hi) {
+  return !(log_hi < logf(kRealD2Max) - 1e-3f);
+}
+
+// Stage the slab rows [start, start + slab) as float4 (x, y, z, w); w is
+// the survivor flag where KEEP, else 0.
+template <bool KEEP>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ r,
+                                           const unsigned char* __restrict__ keep,
+                                           int start, int slab, float4* s4) {
+  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
+    const float* row = r + 3 * static_cast<size_t>(start + j);
+    float w = 0.0f;
+    if constexpr (KEEP) w = keep[start + j] ? 1.0f : 0.0f;
+    s4[j] = make_float4(row[0], row[1], row[2], w);
+  }
+}
+
+// d2 of the query to slab row p, or NaN where the row does not count: a
+// non-survivor (KEEP and p.w == 0) or, where CHECK, a sentinel pair.
+template <bool CHECK, bool KEEP>
+__device__ __forceinline__ float counted_d2(float qx, float qy, float qz, float4 p) {
+  const float d = sqdist(qx, qy, qz, p.x, p.y, p.z);
+  bool ok = true;
+  if constexpr (KEEP) ok = p.w != 0.0f;
+  if constexpr (CHECK) ok = ok && d < kRealD2Max;
+  return ok ? d : __int_as_float(0x7fffffff);
+}
+
+// The rows a team reduces over: the whole staged slab (row i is slab row i) ...
+struct SlabRows {
+  const float4* s4;
+  __device__ __forceinline__ int index(int i) const { return i; }
+  __device__ __forceinline__ float4 row(int i) const { return s4[i]; }
+};
+
+// ... or the slab rows that the team listed (row i is slab row list[i]).
+struct ListedRows {
+  const float4* s4;
+  const unsigned short* list;
+  __device__ __forceinline__ int index(int i) const { return list[i]; }
+  __device__ __forceinline__ float4 row(int i) const { return s4[list[i]]; }
+};
+
+// Compact the slab rows at d2 <= top into list, in ascending order, at most
+// CAP of them (ballot and popcount prefix over the team).  Returns how many
+// there are; above CAP the sweep stops early and the list is not complete.
+template <int TEAM, int CAP, bool CHECK>
+__device__ __forceinline__ int list_rows_within(const float4* s4, int slab, int lane,
+                                                unsigned mask, float qx, float qy, float qz,
+                                                float top, unsigned short* list) {
+  const int shift = (threadIdx.x & 31) - lane;       // the team's first lane in its warp
+  const unsigned below = (1u << lane) - 1u;          // the team's lanes before this one
+  int n = 0;
+  for (int j0 = 0; j0 < slab && n <= CAP; j0 += TEAM) {
+    const int j = j0 + lane;
+    const bool in = j < slab && counted_d2<CHECK, false>(qx, qy, qz, s4[j]) <= top;
+    const unsigned votes = __ballot_sync(mask, in) >> shift;
+    const int pos = n + __popc(votes & below);
+    if (in && pos < CAP) list[pos] = static_cast<unsigned short>(j);
+    n += __popc(votes);
+  }
+  __syncwarp(mask);
+  return n;
+}
+
+// One pass: count the team's n rows at d2 <= each threshold of the next
+// R levels below (lo, hi) (exp of the midpoint where LOG), then walk them.
+template <int TEAM, int R, bool LOG, bool CHECK, bool KEEP, typename ROWS>
+__device__ __forceinline__ void count_levels(const ROWS& rows, int n, int lane,
+                                             unsigned mask, float qx, float qy, float qz,
+                                             int k, float& lo, float& hi) {
+  constexpr int M = (1 << R) - 1;
+  float mid[M], t[M];
+  int cnt[M];
+  subtree_mids<R>(lo, hi, mid);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    t[m] = LOG ? expf(mid[m]) : mid[m];
+    cnt[m] = 0;
+  }
+#pragma unroll 4
+  for (int j = lane; j < n; j += TEAM) {
+    const float d = counted_d2<CHECK, KEEP>(qx, qy, qz, rows.row(j));
+#pragma unroll
+    for (int m = 0; m < M; ++m) cnt[m] += d <= t[m];
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) cnt[m] = __reduce_add_sync(mask, cnt[m]);
+  walk_levels<R>(cnt, mid, k, lo, hi);
+}
+
+// The whole 10-step bisection for the k-th nearest counted row, LEVELS levels
+// a pass (the last pass takes what is left).
+template <int TEAM, int LEVELS, bool LOG, bool CHECK, bool KEEP, int DONE = 0, typename ROWS>
+__device__ __forceinline__ void bisect(const ROWS& rows, int n, int lane, unsigned mask,
+                                       float qx, float qy, float qz, int k, float& lo,
+                                       float& hi) {
+  constexpr int R = LEVELS < kBisectSteps - DONE ? LEVELS : kBisectSteps - DONE;
+  count_levels<TEAM, R, LOG, CHECK, KEEP>(rows, n, lane, mask, qx, qy, qz, k, lo, hi);
+  if constexpr (DONE + R < kBisectSteps) {
+    bisect<TEAM, LEVELS, LOG, CHECK, KEEP, DONE + R>(rows, n, lane, mask, qx, qy, qz, k, lo,
+                                                      hi);
+  }
+}
+
+// The moments [x y z | xx xy xz yy yz zz | count] of the counted rows at
+// d2 <= tau, centred on (cx, cy, cz); lane 0 writes the 10 floats to out.
+template <int TEAM, bool CHECK, bool KEEP, typename ROWS>
+__device__ __forceinline__ void team_moments(const ROWS& rows, int n, int lane,
+                                             unsigned mask, float qx, float qy, float qz,
+                                             float tau, float cx, float cy, float cz,
+                                             float* __restrict__ out) {
+  float acc[9];
+#pragma unroll
+  for (int f = 0; f < 9; ++f) acc[f] = 0.0f;
+  int cnt = 0;
+  for (int j = lane; j < n; j += TEAM) {
+    const float4 p = rows.row(j);
+    const float d = counted_d2<CHECK, KEEP>(qx, qy, qz, p);
+    if (d <= tau) {
+      const float bx = __fsub_rn(p.x, cx);
+      const float by = __fsub_rn(p.y, cy);
+      const float bz = __fsub_rn(p.z, cz);
+      acc[0] = __fadd_rn(acc[0], bx);
+      acc[1] = __fadd_rn(acc[1], by);
+      acc[2] = __fadd_rn(acc[2], bz);
+      acc[3] = __fadd_rn(acc[3], __fmul_rn(bx, bx));
+      acc[4] = __fadd_rn(acc[4], __fmul_rn(bx, by));
+      acc[5] = __fadd_rn(acc[5], __fmul_rn(bx, bz));
+      acc[6] = __fadd_rn(acc[6], __fmul_rn(by, by));
+      acc[7] = __fadd_rn(acc[7], __fmul_rn(by, bz));
+      acc[8] = __fadd_rn(acc[8], __fmul_rn(bz, bz));
+      ++cnt;
+    }
+  }
+  cnt = __reduce_add_sync(mask, cnt);
+#pragma unroll
+  for (int f = 0; f < 9; ++f) acc[f] = team_sum<TEAM>(acc[f], mask);
+  if (lane == 0) {
+#pragma unroll
+    for (int f = 0; f < 9; ++f) out[f] = acc[f];
+    out[9] = static_cast<float>(cnt);
   }
 }
 

@@ -15,7 +15,8 @@
 // recomputed from the slab in every pass.  Bound: issue rate (about 15
 // instructions a (query, row) pair a pass, against a few bytes a query).
 //
-// Design for the H100:
+// Design for the H100 (the team, staging, counting and moments helpers are
+// in common.cuh, which K4 and K5 of fpfh.cu share):
 //  * A team of kTeam lanes shares one query and splits its slab (lane l
 //    takes rows l, l + kTeam, ...), so a block of kWarps warps works on
 //    kWarps * 32 / kTeam queries of one tile at once and the finest stage-2
@@ -53,87 +54,20 @@
 
 namespace {
 
-using pcr::kBisectSteps;
+using pcr::bisect;
+using pcr::blocks_for;
+using pcr::counted_d2;
+using pcr::Geometry;
 using pcr::kRealD2Max;
 using pcr::reserve_smem;
+using pcr::SlabRows;
+using pcr::stage_rows;
 
 // Chosen on the H100 by tools/tune_preprocess.py (PERF.md).
 constexpr int kTeam = 32;            // lanes a query
 constexpr int kWarps = 8;            // warps a block
 constexpr int kQueriesPerTeam = 1;   // queries a team takes in turn
 constexpr int kLevels = 2;           // bisection levels a pass
-
-template <int TEAM, int WARPS, int QPT>
-struct Geometry {
-  static constexpr int kThreads = 32 * WARPS;
-  static constexpr int kTeams = kThreads / TEAM;
-  static constexpr int kQueries = kTeams * QPT;   // queries a block
-};
-
-// Stage the slab rows [start, start + slab) as float4 (x, y, z, w); w is
-// the survivor flag where KEEP, else 0.
-template <bool KEEP>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ r,
-                                           const unsigned char* __restrict__ keep,
-                                           int start, int slab, float4* s4) {
-  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
-    const float* row = r + 3 * static_cast<size_t>(start + j);
-    float w = 0.0f;
-    if constexpr (KEEP) w = keep[start + j] ? 1.0f : 0.0f;
-    s4[j] = make_float4(row[0], row[1], row[2], w);
-  }
-}
-
-// d2 of the query to slab row p, or NaN where the row does not count: a
-// non-survivor (KEEP and p.w == 0) or, where CHECK, a sentinel pair.
-template <bool CHECK, bool KEEP>
-__device__ __forceinline__ float counted_d2(float qx, float qy, float qz, float4 p) {
-  const float d = pcr::sqdist(qx, qy, qz, p.x, p.y, p.z);
-  bool ok = true;
-  if constexpr (KEEP) ok = p.w != 0.0f;
-  if constexpr (CHECK) ok = ok && d < kRealD2Max;
-  return ok ? d : __int_as_float(0x7fffffff);
-}
-
-// One pass: count the team's slab rows at d2 <= each threshold of the next
-// R levels below (lo, hi) (exp of the midpoint where LOG), then walk them.
-template <int TEAM, int R, bool LOG, bool CHECK, bool KEEP>
-__device__ __forceinline__ void count_levels(const float4* s4, int slab, int lane,
-                                             unsigned mask, float qx, float qy, float qz,
-                                             int k, float& lo, float& hi) {
-  constexpr int M = (1 << R) - 1;
-  float mid[M], t[M];
-  int cnt[M];
-  pcr::subtree_mids<R>(lo, hi, mid);
-#pragma unroll
-  for (int n = 0; n < M; ++n) {
-    t[n] = LOG ? expf(mid[n]) : mid[n];
-    cnt[n] = 0;
-  }
-#pragma unroll 4
-  for (int j = lane; j < slab; j += TEAM) {
-    const float d = counted_d2<CHECK, KEEP>(qx, qy, qz, s4[j]);
-#pragma unroll
-    for (int n = 0; n < M; ++n) cnt[n] += d <= t[n];
-  }
-#pragma unroll
-  for (int n = 0; n < M; ++n) cnt[n] = __reduce_add_sync(mask, cnt[n]);
-  pcr::walk_levels<R>(cnt, mid, k, lo, hi);
-}
-
-// The whole 10-step bisection, LEVELS levels a pass (the last pass takes
-// what is left).
-template <int TEAM, int LEVELS, bool LOG, bool CHECK, bool KEEP, int DONE = 0>
-__device__ __forceinline__ void bisect(const float4* s4, int slab, int lane, unsigned mask,
-                                       float qx, float qy, float qz, int k, float& lo,
-                                       float& hi) {
-  constexpr int R = LEVELS < kBisectSteps - DONE ? LEVELS : kBisectSteps - DONE;
-  count_levels<TEAM, R, LOG, CHECK, KEEP>(s4, slab, lane, mask, qx, qy, qz, k, lo, hi);
-  if constexpr (DONE + R < kBisectSteps) {
-    bisect<TEAM, LEVELS, LOG, CHECK, KEEP, DONE + R>(s4, slab, lane, mask, qx, qy, qz, k,
-                                                      lo, hi);
-  }
-}
 
 template <int TEAM, int WARPS, int QPT, int LEVELS, bool CHECK>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -158,7 +92,8 @@ __global__ void __launch_bounds__(32 * WARPS)
 
     // log-space count-CDF bisection for the k1-th nearest (self included)
     float llo = log_lo, lhi = log_hi;
-    bisect<TEAM, LEVELS, true, CHECK, false>(s4, slab, lane, mask, qx, qy, qz, k1, llo, lhi);
+    bisect<TEAM, LEVELS, true, CHECK, false>(SlabRows{s4}, slab, lane, mask, qx, qy, qz, k1,
+                                             llo, lhi);
     const float tau = expf(lhi);
     int cnt = 0;
     float sum_d = 0.0f;
@@ -180,48 +115,18 @@ __global__ void __launch_bounds__(32 * WARPS)
 }
 
 // K3 for one query: the linear bisection on [0, hi] for the normal_k-th
-// survivor, then the moments [x y z | xx xy xz yy yz zz | count] of the
-// survivors at d2 <= tau, centred on (cx, cy, cz).
+// survivor, then the moments of the survivors at d2 <= tau.
 template <int TEAM, int LEVELS, bool CHECK>
 __device__ __forceinline__ void survivor_query(const float4* s4, int slab, int lane,
                                                unsigned mask, float qx, float qy, float qz,
                                                float hi, float cx, float cy, float cz,
                                                int normal_k, float* __restrict__ out) {
   float lo = 0.0f;
-  bisect<TEAM, LEVELS, false, CHECK, true>(s4, slab, lane, mask, qx, qy, qz, normal_k, lo,
+  const SlabRows rows{s4};
+  bisect<TEAM, LEVELS, false, CHECK, true>(rows, slab, lane, mask, qx, qy, qz, normal_k, lo,
                                            hi);
-  const float tau = hi;
-  float acc[9];
-#pragma unroll
-  for (int f = 0; f < 9; ++f) acc[f] = 0.0f;
-  int cnt = 0;
-  for (int j = lane; j < slab; j += TEAM) {
-    const float4 p = s4[j];
-    const float d = counted_d2<CHECK, true>(qx, qy, qz, p);
-    if (d <= tau) {
-      const float bx = __fsub_rn(p.x, cx);
-      const float by = __fsub_rn(p.y, cy);
-      const float bz = __fsub_rn(p.z, cz);
-      acc[0] = __fadd_rn(acc[0], bx);
-      acc[1] = __fadd_rn(acc[1], by);
-      acc[2] = __fadd_rn(acc[2], bz);
-      acc[3] = __fadd_rn(acc[3], __fmul_rn(bx, bx));
-      acc[4] = __fadd_rn(acc[4], __fmul_rn(bx, by));
-      acc[5] = __fadd_rn(acc[5], __fmul_rn(bx, bz));
-      acc[6] = __fadd_rn(acc[6], __fmul_rn(by, by));
-      acc[7] = __fadd_rn(acc[7], __fmul_rn(by, bz));
-      acc[8] = __fadd_rn(acc[8], __fmul_rn(bz, bz));
-      ++cnt;
-    }
-  }
-  cnt = __reduce_add_sync(mask, cnt);
-#pragma unroll
-  for (int f = 0; f < 9; ++f) acc[f] = pcr::team_sum<TEAM>(acc[f], mask);
-  if (lane == 0) {
-#pragma unroll
-    for (int f = 0; f < 9; ++f) out[f] = acc[f];
-    out[9] = static_cast<float>(cnt);
-  }
+  pcr::team_moments<TEAM, CHECK, true>(rows, slab, lane, mask, qx, qy, qz, hi, cx, cy, cz,
+                                       out);
 }
 
 template <int TEAM, int WARPS, int QPT, int LEVELS>
@@ -259,21 +164,12 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-// Blocks of one tile's queries: ceil(q_tile / queries a block) of them a tile.
-template <int TEAM, int WARPS, int QPT>
-int blocks_for(int n_pad, int q_tile) {
-  using G = Geometry<TEAM, WARPS, QPT>;
-  return (n_pad / q_tile) * ((q_tile + G::kQueries - 1) / G::kQueries);
-}
-
 template <int TEAM, int WARPS, int QPT, int LEVELS>
 int launch_outlier_stats(const int* starts, const float* q, const float* r, int n_pad,
                          int q_tile, int band, int k1, float log_lo, float log_hi,
                          float* mean_d, unsigned char* found, float* tau_out,
                          cudaStream_t stream) {
-  // Every threshold is at most ~expf(log_hi): below kRealD2Max (with a
-  // margin far above expf's error) no threshold admits a sentinel pair.
-  const bool check = !(log_hi < logf(kRealD2Max) - 1e-3f);
+  const bool check = pcr::needs_sentinel_check(log_hi);
   auto kernel = check ? &outlier_stats_kernel<TEAM, WARPS, QPT, LEVELS, true>
                       : &outlier_stats_kernel<TEAM, WARPS, QPT, LEVELS, false>;
   const size_t smem = sizeof(float4) * 2 * static_cast<size_t>(band);

@@ -16,10 +16,11 @@ those neighbours, centred on the tile's slab centroid.
 
 Bound on the H100: issue rate.  The TPU kernels keep the (TQ, 2*band) d2
 tile resident in VMEM through all 10 bisection steps; that tile does not fit
-in a block's shared memory, so the kernels recompute distances from the slab,
-which the block holds in shared memory: a warp shares one query, and each
-pass over the slab counts two bisection levels (the header of preprocess.cu
-says how tau stays the serial walk's, bit for bit).  The
+in a block's shared memory, so K2-K5 recompute distances from the slab,
+which the block stages once in shared memory as float4 rows: a team of lanes
+(a warp) shares one query and splits the slab, and each pass over it counts
+two bisection levels (the header of preprocess.cu says how tau stays the
+serial walk's, bit for bit; the shared helpers are in csrc/common.cuh).  The
 plain versions below follow the XLA ``spacing_hint`` branch of
 ``pcr_tpu/ops/preprocess._outlier_and_normals_sorted`` and share the
 kernels' slabs and d2 formula, so the two differ only in summation order.
@@ -27,7 +28,11 @@ kernels' slabs and d2 formula, so the two differ only in summation order.
 K4 ``moments`` replaces ``feature_kernels.py:moments_pallas``: a 10-step
 log-space bisection on [0.05v, 2v] for the normal_k-th nearest slab row (self
 included), then the moments of that Hybrid(2v, normal_k) set, centred on the
-tile's slab centroid.
+tile's slab centroid.  The kernel first lists, in one sweep of the slab,
+the rows within the top bound (2v)^2, a handful of the 2*band, and runs the
+bisection and the moments over the list; a query with more such rows than
+the list holds reduces over the whole slab.  Either way the counts are the
+slab's, so tau and the neighbour counts equal the plain version's.
 
 K5 ``spfh`` replaces ``feature_kernels.py:spfh_pallas``: a log bisection on
 [0.05v, 10v] for the (max_nn+1)-th nearest, tau = min(that, (10v)^2); over
@@ -35,7 +40,17 @@ the kept pairs (real, d2 <= tau, d2 > 0, not the query's own slab column) the
 Darboux features f1, f2, f3 and three 11-bin histograms scaled by 100/count.
 f3 is binned with atan2 and floor, as the XLA path of
 ``pcr_tpu/ops/fpfh_sorted`` does (the Pallas kernel's atan2-free binning
-exists because Mosaic has no atan2).
+exists because Mosaic has no atan2).  Like K4 it lists the rows within its
+top bound (10v)^2 first.  After the bisection the team goes through its rows
+once more and compacts the kept ones (~200 of the 2*band) across its
+lanes (ballot and popcount prefix into a list in shared memory); every 32
+kept rows each lane evaluates one pair and adds 1 to three bins of the
+team's integer histogram in shared memory, so no lane waits while another
+runs the square roots, divisions and atan2 of a pair.  Bin counts are
+integers, so the histogram does not depend on the order of the pairs.  The
+neighbours' normals are read from global memory (L2) for the kept rows only.
+Tensor cores serve neither kernel: d2 must be the rounded f32 formula for
+tau and the kept set to equal the plain version's.
 
 K6 ``fpfh`` replaces ``feature_kernels.py:fpfh_pallas``: over K5's kept pairs,
 the sum of (1/max(d2, 1e-12)) * spfh[row]; the caller normalises the blocks
@@ -59,6 +74,7 @@ from . import build, common
 LAUNCHES = {"outlier_stats": 0, "survivor_moments": 0, "moments": 0, "spfh": 0,
             "fpfh": 0}
 BISECT_STEPS = 10
+MAX_LISTED_SLAB = 1 << 16   # K4 and K5 list candidate slab rows in 16 bits
 N_BINS = 11
 FEATURE_DIM = 33
 
@@ -76,8 +92,9 @@ def _log_bounds(scale: float, lo_mult: float, hi_mult: float) -> tuple[float, fl
 
 
 def _log_bisect(d2, real, k: int, lo: float, hi: float):
-    """Plain log-space count-CDF bisection (the kernels' ``log_bisect_tau``):
-    per row of d2 (..., S), tau = exp(lhi) after BISECT_STEPS halvings."""
+    """Plain log-space count-CDF bisection (the serial walk that the kernels'
+    ``pcr::bisect`` reproduces several levels a pass): per row of d2
+    (..., S), tau = exp(lhi) after BISECT_STEPS halvings."""
     llo = torch.full(d2.shape[:-1], lo, dtype=torch.float32, device=d2.device)
     lhi = torch.full(d2.shape[:-1], hi, dtype=torch.float32, device=d2.device)
     for _ in range(BISECT_STEPS):
@@ -236,6 +253,12 @@ def pair_keep(d2, tau, starts_el, q_tile: int, band: int, first_tile: int = 0):
             & (col != self_col[..., None]))
 
 
+def _check_listed_slab(band: int) -> None:
+    if 2 * band > MAX_LISTED_SLAB:
+        raise ValueError(f"slab of 2*{band} rows exceeds the {MAX_LISTED_SLAB} rows that "
+                         f"kernels K4 and K5 can list")
+
+
 def moments_reference(starts_el, q, r, center, voxel_size, *, q_tile: int,
                       band: int, normal_k: int = 20):
     """Plain PyTorch version of K4: (n_pad, 10) f32 moments."""
@@ -273,6 +296,7 @@ def moments(starts_el, q, r, center, voxel_size, *, q_tile: int, band: int,
     common.check(q, "q", torch.float32, (n_pad, 3))
     common.check(r, "r", torch.float32, (nr_pad, 3))
     common.check(center, "center", torch.float32, (n_tiles, 3))
+    _check_listed_slab(band)
     out = torch.empty((n_pad, 10), dtype=torch.float32, device=q.device)
     lo, hi = _log_bounds(voxel_size, 0.05, 2.0)
     lib = build.library()
@@ -371,6 +395,7 @@ def spfh(starts_el, q, nq, r, nr, voxel_size, *, q_tile: int, band: int,
         common.check(t, name, torch.float32, (n_pad, 3))
     for t, name in ((r, "r"), (nr, "nr")):
         common.check(t, name, torch.float32, (nr_pad, 3))
+    _check_listed_slab(band)
     hist = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
     tau = torch.empty(n_pad, dtype=torch.float32, device=q.device)
     lo, hi = _log_bounds(voxel_size, 0.05, 10.0)

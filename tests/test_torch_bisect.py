@@ -1,6 +1,7 @@
 """The multi-level bisection walk of kernels K2 and K3
-(``pcr_tpu_torch/csrc/preprocess.cu``), mirrored in torch on the CPU and held
-bit for bit against the serial walks of their plain versions.
+(``pcr_tpu_torch/csrc/preprocess.cu``) and K4 and K5
+(``pcr_tpu_torch/csrc/fpfh.cu``), and K5's compacted consumer, mirrored in
+torch on the CPU and held bit for bit against their plain versions.
 
 A pass of the kernel counts the slab against the 2^m - 1 thresholds of the
 next m levels of the bisection tree (heap order, each the midpoint
@@ -11,6 +12,13 @@ threshold lies below ``REAL_D2_MAX``.  The mirror below does the same
 operations in f32 in the same order, so tau must be bit-equal
 (``torch.equal``) to ``feature_kernels._log_bisect`` (K2, K4, K5) and to
 K3's linear loop, whose counts ``survivor_moments_reference`` returns.
+
+K5's consumer sweeps the slab 32 rows a step (one a lane), compacts the
+kept rows of a step behind those still waiting in the team's list (ballot
+and popcount prefix), and whenever 32 wait, evaluates them one a lane and
+adds 1 to three integer bins; what is left is evaluated after the sweep.
+The mirror does the same with tensors, every query at once, and must give
+``spfh_reference``'s histograms exactly.
 """
 
 import math
@@ -30,7 +38,11 @@ STEPS = fk.BISECT_STEPS
 LEVELS = (1, 2, 3, 4, 5)       # 10 % 3 and 10 % 4 leave a shorter last pass
 CASES = ("surface", "ties", "sparse", "k1")
 H = 0.2                        # spacing hint (voxel size)
-SOURCE = Path(fk.__file__).resolve().parents[2] / "csrc" / "preprocess.cu"
+CSRC = Path(fk.__file__).resolve().parents[2] / "csrc"
+V = 0.1                        # voxel size of the feature kernels' cases
+FEATURE_KERNELS = {"k4": (20, 2.0), "k5": (201, 10.0)}   # k, top bound in voxels
+FEATURE_CASES = ("surface", "sparse", "duplicated")
+TEAM = 32
 
 
 def subtree_mids(lo, hi, r: int):
@@ -188,7 +200,162 @@ def test_multilevel_walk_gives_plain_k3_counts(levels):
     assert bool((S[:, 9] >= 20).any()) and bool((S[:, 9] < 20).any())
 
 
-def test_kernel_levels_are_covered():
-    """The levels a pass that preprocess.cu fixes are among those tested."""
-    m = re.search(r"constexpr int kLevels = (\d+);", SOURCE.read_text())
+@pytest.mark.parametrize("source", ["preprocess.cu", "fpfh.cu"])
+def test_kernel_levels_are_covered(source):
+    """The levels a pass that each source fixes are among those tested, and
+    fpfh.cu's team is the mirror's."""
+    text = (CSRC / source).read_text()
+    m = re.search(r"constexpr int kLevels = (\d+);", text)
     assert m is not None and int(m.group(1)) in LEVELS
+    if source == "fpfh.cu":
+        m = re.search(r"constexpr int kTeam = (\d+);", text)
+        assert m is not None and int(m.group(1)) == TEAM
+
+
+def _feature_points(rng, case: str, n: int = 1900):
+    """A bumpy patch at ~0.08 m spacing (0.1 m voxels): ``duplicated`` repeats
+    400 rows exactly; ``clusters`` keeps a third of it and adds a lone point,
+    a group of 9 and a group of 45 points, each 5 m from everything else."""
+    side = float(np.sqrt(n) * 0.08)
+    pts = rng.uniform(-side / 2, side / 2, size=(n, 3)).astype(np.float32)
+    pts[:, 2] = 0.4 * np.sin(pts[:, 0]) * np.cos(0.7 * pts[:, 1])
+    if case == "duplicated":
+        pts[800:1200] = pts[:400]
+    if case == "clusters":
+        groups = [np.asarray(c, np.float32) + rng.uniform(-0.3, 0.3, (m, 3)).astype(np.float32)
+                  for c, m in (((8, 0, 0), 1), ((0, 9, 0), 9), ((-8, -8, 0), 45))]
+        pts = np.concatenate([pts[:n // 3]] + groups)
+    return pts
+
+
+def _feature_tiles(rng, case: str, q_tile=128, band=256):
+    """(mask, sorted queries, sorted refs, slab starts, d2 (T, TQ, 2B))."""
+    pts = _feature_points(rng, case)
+    c = cloud.from_numpy(pts, 2048, device="cpu")
+    _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, q_tile, band)
+    d2 = common.sqdist_tiles(p_q.view(-1, q_tile, 3), common.slabs(starts, p_r, band))
+    return ms, p_q, p_r, starts, d2
+
+
+@pytest.mark.parametrize("levels", LEVELS)
+@pytest.mark.parametrize("case", FEATURE_CASES)
+@pytest.mark.parametrize("kernel", sorted(FEATURE_KERNELS))
+def test_multilevel_log_walk_matches_serial_features(kernel, case, levels):
+    """K4's walk (k = 20 on [0.05v, 2v]) and K5's (k = 201 on [0.05v, 10v],
+    capped at (10v)^2): tau bit-equal to ``_log_bisect``, with or without the
+    sentinel test, on a surface, on slabs with fewer than k real rows and on
+    duplicated points."""
+    k, top = FEATURE_KERNELS[kernel]
+    rng = np.random.default_rng(13)
+    if case == "sparse":          # 12 real rows a slab
+        d2 = torch.as_tensor(rng.uniform(0, 0.02, (48, 384)), dtype=torch.float32)
+        d2[:, 12:] = 3.0e12
+    else:
+        d2 = _feature_tiles(rng, case)[-1].reshape(-1, 512)
+    real = d2 < common.REAL_D2_MAX
+    lo_f, hi_f = fk._log_bounds(V, 0.05, top)
+    assert math.exp(hi_f) < common.REAL_D2_MAX
+    cap = fk._radius2(V) if kernel == "k5" else float("inf")
+    tau_serial = torch.clamp(fk._log_bisect(d2, real, k, lo_f, hi_f), max=cap)
+    lo, hi = torch.full(d2.shape[:-1], lo_f), torch.full(d2.shape[:-1], hi_f)
+    for counted in (real, torch.ones_like(real)):
+        _, lhi = multilevel_bisect(d2, counted, k, lo, hi, levels, log=True)
+        assert torch.equal(torch.clamp(torch.exp(lhi), max=cap), tau_serial)
+    found = torch.sum(real & (d2 <= tau_serial[..., None]), dim=-1) >= k
+    if case == "sparse":
+        assert not bool(found.any())
+        assert torch.equal(tau_serial, torch.clamp(torch.exp(hi), max=cap))
+    else:                         # some neighbourhoods reach k, some stop at the top bound
+        assert bool(found.any()) and not bool(found.all())
+
+
+@pytest.mark.parametrize("case", FEATURE_CASES)
+@pytest.mark.parametrize("kernel", sorted(FEATURE_KERNELS))
+def test_listed_rows_give_the_slab_walk(kernel, case):
+    """K4 and K5 list the slab rows within the bisection's top bound and walk
+    over the list: counting only those rows gives the slab's tau, and every
+    row at d2 <= tau is listed."""
+    k, top = FEATURE_KERNELS[kernel]
+    rng = np.random.default_rng(19)
+    if case == "sparse":
+        d2 = torch.as_tensor(rng.uniform(0, 0.02, (48, 384)), dtype=torch.float32)
+        d2[:, 12:] = 3.0e12
+    else:
+        d2 = _feature_tiles(rng, case)[-1].reshape(-1, 512)
+    real = d2 < common.REAL_D2_MAX
+    lo_f, hi_f = fk._log_bounds(V, 0.05, top)
+    lo, hi = torch.full(d2.shape[:-1], lo_f), torch.full(d2.shape[:-1], hi_f)
+    listed = d2 <= torch.exp(hi)[..., None]
+    assert bool((listed.sum(-1) < d2.shape[-1]).all())
+    tau_serial = fk._log_bisect(d2, real, k, lo_f, hi_f)
+    _, lhi = multilevel_bisect(d2, listed, k, lo, hi, 2, log=True)
+    assert torch.equal(torch.exp(lhi), tau_serial)
+    assert not bool((real & (d2 <= tau_serial[..., None]) & ~listed).any())
+
+
+def compacted_histograms(starts, q, nq, r, nr, tau, q_tile: int, band: int):
+    """K5's consumer for every query at once: (n_pad, 33) float32 histograms
+    and the set of list lengths met at the last flush."""
+    n_tiles, slab = starts.shape[0], 2 * band
+    n_q = n_tiles * q_tile
+    b, nb = common.slabs(starts, r, band), common.slabs(starts, nr, band)
+    d2 = common.sqdist_tiles(q.view(n_tiles, q_tile, 3), b)
+    keep = fk.pair_keep(d2, tau.view(n_tiles, q_tile), starts, q_tile, band)
+    keep = keep.reshape(n_q, slab // TEAM, TEAM)
+    lo3, scale12, scale3 = fk._bin_constants()
+    lane = torch.arange(TEAM)
+    every = torch.arange(n_q)
+    hist = torch.zeros(n_q, fk.FEATURE_DIM, dtype=torch.long)
+    rows_list = torch.zeros(n_q, 2 * TEAM, dtype=torch.long)
+    pending = torch.zeros(n_q, dtype=torch.long)
+    total = torch.zeros(n_q, dtype=torch.long)
+
+    def bin_pairs(qi, rows, valid):
+        """One flush: query qi[f]'s lane l evaluates slab row rows[f, l]."""
+        t = (qi // q_tile)[:, None]
+        bq, nbq = b[t, rows], nb[t, rows]
+        qq, nqq = q[qi][:, None, :], nq[qi][:, None, :]
+        f1, f2, f3 = fk._pair_features_tile(qq, nqq, bq, nbq, common.sqdist_tiles(qq, bq))
+        for f, lo, scale, first in ((f1, -1.0, scale12, 0), (f2, -1.0, scale12, fk.N_BINS),
+                                    (f3, lo3, scale3, 2 * fk.N_BINS)):
+            bins = torch.clamp(torch.floor((f[:, 0] - lo) * scale).long(), 0, fk.N_BINS - 1)
+            hist.index_put_((qi[:, None].expand_as(bins)[valid], first + bins[valid]),
+                            torch.ones((), dtype=torch.long), accumulate=True)
+
+    for step in range(slab // TEAM):
+        votes = keep[:, step]
+        ahead = torch.cumsum(votes, dim=1) - votes.long()     # kept lanes before this one
+        qi, li = votes.nonzero(as_tuple=True)
+        rows_list[qi, pending[qi] + ahead[qi, li]] = step * TEAM + li
+        n_new = votes.sum(dim=1)
+        pending, total = pending + n_new, total + n_new
+        full = (pending >= TEAM).nonzero()[:, 0]
+        if full.numel():
+            pending[full] -= TEAM
+            bin_pairs(full, rows_list[full[:, None], pending[full][:, None] + lane],
+                      torch.ones(full.numel(), TEAM, dtype=torch.bool))
+    bin_pairs(every, rows_list[:, :TEAM], lane[None, :] < pending[:, None])
+    incr = torch.where(total > 0, torch.full((n_q,), 100.0) / torch.clamp(total, min=1).float(),
+                       0.0)
+    return hist.float() * incr[:, None], total
+
+
+@pytest.mark.parametrize("case", ("surface", "duplicated", "clusters"))
+def test_spfh_compacted_consumer_matches_plain(case):
+    """The mirror of K5's consumer gives ``spfh_reference``'s histograms bit
+    for bit; ``clusters`` has a query with no kept pair, queries with fewer
+    than 32 and queries whose kept count is no multiple of 32."""
+    q_tile, band = 128, 256
+    ms, p_q, p_r, starts, _ = _feature_tiles(np.random.default_rng(17), case, q_tile, band)
+    S = fk.moments_reference(starts, p_q, p_r, fk.slab_centroids(starts, p_r, band), V,
+                             q_tile=q_tile, band=band)
+    normals, _ = preprocess.normals_from_moments(S[:ms.shape[0]], ms)
+    nq = cloud.pad_rows(normals, p_q.shape[0], 0.0).contiguous()
+    nr = cloud.pad_rows(normals, p_r.shape[0], 0.0).contiguous()
+    h_p, tau = fk.spfh_reference(starts, p_q, nq, p_r, nr, V, q_tile=q_tile, band=band)
+    h_m, total = compacted_histograms(starts, p_q, nq, p_r, nr, tau, q_tile, band)
+    assert torch.equal(h_m, h_p)
+    valid = total[:ms.shape[0]][ms]
+    assert bool((valid % TEAM != 0).any()) and bool((valid > TEAM).any())
+    if case == "clusters":
+        assert bool((valid == 0).any()) and bool(((valid > 0) & (valid < TEAM)).any())

@@ -113,18 +113,43 @@ def test_cuda_path_never_falls_back(cuda_rng):
                             torch.zeros(512, 3, device=dev), q_tile=256, band=256)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,band,q_tile", [(4096, 512, 512), (8192, 1024, 512),
-                                            (2048, 256, 256)])
-def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile):
-    """K4-K6 on a bumpy 0.1 m-voxel surface: K4's counts and K5's tau equal
-    (same d2 formula, same bisection), K5's bins equal (the same rounded
-    operations in the same order), K4's and K6's sums equal up to their
-    order (f32, 1e-5 and 2.4e-5 relative).  Each wrapper counts its launch."""
-    dev = torch.device("cuda")
+def _feature_cloud(rng, n: int, kind: str):
+    """(n - 100, 3) points of a bumpy surface at ~0.08 m spacing (0.1 m
+    voxels).  ``sparse`` spreads three quarters of the points 12 times wider,
+    so that they have fewer than 20 slab neighbours within 2 voxels and
+    fewer than 201 within 10 (some none at all), and draws the other quarter
+    together so that many of its rows have them; ``duplicated`` repeats a
+    quarter of the rows exactly (d2 ties, d2 = 0 between distinct rows,
+    which K5 and K6 leave out); ``crowded`` draws half of the points 20
+    times closer, so that their slabs hold more rows within the bisections'
+    top bounds (2 and 10 voxels) than a team of K4 or K5 can list, beside
+    rows that it can."""
     side = float(np.sqrt(n) * 0.08)
-    pts = cuda_rng.uniform(-side / 2, side / 2, size=(n - 100, 3)).astype(np.float32)
+    pts = rng.uniform(-side / 2, side / 2, size=(n - 100, 3)).astype(np.float32)
+    quarter = (n - 100) // 4
+    if kind == "sparse":
+        pts[:quarter] *= 0.4
+        pts[quarter:] *= 12.0
+    if kind == "crowded":
+        pts[:2 * quarter] *= 0.05
     pts[:, 2] = 0.4 * np.sin(pts[:, 0]) * np.cos(0.7 * pts[:, 1])
+    if kind == "duplicated":
+        pts[2 * quarter:3 * quarter] = pts[:quarter]
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["surface", "sparse", "duplicated", "crowded"])
+@pytest.mark.parametrize("n,band,q_tile", [(4096, 512, 512), (8192, 1024, 512),
+                                            (2048, 256, 256), (24576, 2048, 512)])
+def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile, kind):
+    """K4-K6 on a bumpy 0.1 m-voxel surface (the last shape is the stage-1
+    path's): K4's counts and K5's tau equal (same d2 formula, same
+    bisection), K5's bins equal (the same rounded operations, integer
+    counts), K4's and K6's sums equal up to their order (f32, 1e-5 and 2.4e-5
+    relative).  Each wrapper counts its launch."""
+    dev = torch.device("cuda")
+    pts = _feature_cloud(cuda_rng, n, kind)
     c = cloud.from_numpy(pts, n, device=dev)
     _, ms, p_q, p_r, starts = preprocess.sort_and_tile(c.points, c.mask, q_tile, band)
     before = dict(feature_kernels.LAUNCHES)
@@ -134,6 +159,8 @@ def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile):
     S_p = feature_kernels.moments_reference(*k4, q_tile=q_tile, band=band)
     assert torch.equal(S_k[:, 9], S_p[:, 9])
     torch.testing.assert_close(S_k, S_p, rtol=1e-5, atol=1e-5)
+    full = int((S_p[:n - 100, 9] >= 20).sum())
+    assert 0 < full < (n - 100) // 2 if kind == "sparse" else full > 0
     normals, _ = preprocess.normals_from_moments(S_p[:n], ms)
     k5 = (starts, p_q, pad_rows(normals, p_q.shape[0], 0.0).contiguous(), p_r,
           pad_rows(normals, p_r.shape[0], 0.0).contiguous(), 0.1)
@@ -152,13 +179,22 @@ def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile):
 
 @pytest.mark.cuda
 def test_spfh_refuses_wrong_dtype(cuda_rng):
-    """A CUDA tensor of the wrong type raises instead of running elsewhere."""
+    """A CUDA tensor of the wrong type, or a slab too long for K4's and K5's
+    candidate lists, raises instead of running elsewhere."""
     dev = torch.device("cuda")
     starts = torch.zeros(1, dtype=torch.int32, device=dev)
     q = torch.zeros(256, 3, dtype=torch.float64, device=dev)
     r = torch.zeros(512, 3, device=dev)
     with pytest.raises(TypeError):
         feature_kernels.spfh(starts, q, q, r, r, 0.1, q_tile=256, band=256)
+    # a slab longer than the kernels' 16-bit candidate lists can name
+    big = torch.zeros(1 << 17, 3, device=dev)
+    q32 = torch.zeros(256, 3, device=dev)
+    with pytest.raises(ValueError, match="can list"):
+        feature_kernels.spfh(starts, q32, q32, big, big, 0.1, q_tile=256, band=1 << 16)
+    with pytest.raises(ValueError, match="can list"):
+        feature_kernels.moments(starts, q32, big, torch.zeros(1, 3, device=dev), 0.1,
+                                q_tile=256, band=1 << 16)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ the real NCLT FGR errors) once cold, REPS times warm without the profiler
 ``torch.profiler``.  Prints the unprofiled walls, the profiled wall, the
 device time (union of the intervals of every GPU kernel, memcpy and memset
 the profiler recorded), the busy share under the profiler (device time /
-profiled wall) and the device time of the largest kernels.
+profiled wall), the device time of the 12 largest kernels and that of each
+of the port's hand-written kernels.
 
 The profiled run's device time divided by the median unprofiled wall is
 printed too, labelled as an estimate: it mixes two runs, and the profiler
@@ -20,6 +21,7 @@ changes neither the kernels' work nor their number.
 from __future__ import annotations
 
 import collections
+import re
 import statistics
 import sys
 import tempfile
@@ -29,6 +31,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 REPS = 5
+# csrc/*.cu keep their kernels in anonymous namespaces (a template's name
+# starts with its return type); so do a few of PyTorch's, under at::
+OWN_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::")
 
 
 def _union_us(intervals) -> float:
@@ -101,6 +106,10 @@ def main() -> int:
           f"({median:.4f} s): {busy_s / median:.4f}")
     for name, us in per_name.most_common(12):
         print(f"  {us * 1e-3:10.3f} ms  {counts[name]:6d}x  {name[:100]}")
+    print("the port's own kernels:")
+    for name, us in per_name.most_common():
+        if OWN_KERNEL.match(name) and "at::" not in name:
+            print(f"  {us * 1e-3:10.3f} ms  {counts[name]:6d}x  {name[:100]}")
     return 0
 
 

@@ -54,22 +54,30 @@ extern "C" int tune_k3(const int* starts, const float* q, const float* r,
 """
 
 
-def tag(v) -> str:
-    return "team{}_warps{}_qpt{}_levels{}".format(*v)
+NAMES = ("team", "warps", "qpt", "levels")
+EXPORTS = {"tune_k2": "pcr_outlier_stats", "tune_k3": "pcr_survivor_moments"}
 
 
-def build_variants() -> dict:
-    """{variant: (ctypes library, ptxas summary)}, compiled in parallel."""
+def tag(v, names=NAMES) -> str:
+    return "_".join(f"{n}{int(x)}" for n, x in zip(names, v))
+
+
+def build_variants(source: str, template: str, variants, exports: dict, names=NAMES) -> dict:
+    """{variant: (ctypes library, ptxas summary)}.  For each variant, a file
+    that includes csrc/``source`` and ``template`` formatted with the
+    variant is compiled (one nvcc a file, all at once); ``exports`` maps each
+    function the template exports to the entry point of build.SIGNATURES
+    whose signature it has."""
     from pcr_tpu_torch.ops.kernels import build
 
-    src = (build.CSRC / "preprocess.cu").read_bytes() + (build.CSRC / "common.cuh").read_bytes()
+    src = (build.CSRC / source).read_bytes() + (build.CSRC / "common.cuh").read_bytes()
     out_dir = build.BUILD_ROOT.parent / "tune" / hashlib.sha256(src).hexdigest()[:16]
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
     procs = {}
-    for v in VARIANTS:
-        cu = out_dir / f"{tag(v)}.cu"
-        cu.write_text(TEMPLATE.format(*v))
+    for v in variants:
+        cu = out_dir / f"{tag(v, names)}.cu"
+        cu.write_text(template.format(*(str(x).lower() for x in v)))
         procs[v] = subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(build.CSRC),
              "-o", str(cu.with_suffix(".so")), str(cu)],
@@ -78,11 +86,11 @@ def build_variants() -> dict:
     for v, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {tag(v)}:\n{err}")
+            raise RuntimeError(f"nvcc failed for {tag(v, names)}:\n{err}")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", err)]
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", err))
-        lib = ctypes.CDLL(str(out_dir / f"{tag(v)}.so"))
-        for name, sig in (("tune_k2", "pcr_outlier_stats"), ("tune_k3", "pcr_survivor_moments")):
+        lib = ctypes.CDLL(str(out_dir / f"{tag(v, names)}.so"))
+        for name, sig in exports.items():
             getattr(lib, name).argtypes = build.SIGNATURES[sig]
             getattr(lib, name).restype = ctypes.c_int
         libs[v] = (lib, f"max {max(regs)} registers, {spills} spill bytes")
@@ -136,7 +144,7 @@ def main() -> int:
     from pcr_tpu_torch.utils import cloud
 
     print(chip_smoke.gpu_line())
-    libs = build_variants()
+    libs = build_variants("preprocess.cu", TEMPLATE, VARIANTS, EXPORTS)
     dev = torch.device("cuda", 0)
     scans, _, _ = chip_smoke.make_circuit()
     clouds = [cloud.from_numpy(s, chip_smoke.CAPACITY, device=dev) for s in scans]
