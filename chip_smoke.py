@@ -10,10 +10,11 @@ Phases (any failure ends the run with a non-zero exit code):
                K3 survivor moments) and its plain PyTorch version on the same
                tensors at every shape and band the main path gives it (each
                pyramid scale, each GICP and final-metrics band, the gate's
-               32768-row clouds), prints their agreement and both times
-               (CUDA events, median; each timed launch waits behind a short
-               spin on the device, so the host's launch work is not
-               counted), and K2's and K3's times at each scale on one line;
+               32768-row clouds), prints their agreement (K1: d2 bit-equal,
+               every row the first minimum) and both times (CUDA events,
+               median; each timed launch waits behind a short spin on the
+               device, so the host's launch work is not counted), and K1's
+               times at each shape and K2's and K3's at each scale on a line;
   4. slice   — stage 2 (pipeline.run_stage2_mgicp: 5 scales, 100 iterations,
                L1) over a seeded synthetic 8-scan out-and-back circuit at
                NCLT scale whose relative motions and initial-pose errors are
@@ -23,8 +24,10 @@ Phases (any failure ends the run with a non-zero exit code):
   5. split   — the warm circuit's time divided into pyramids and GICP;
   6. feature kernels — K4 moments, K5 SPFH and K6 FPFH against their plain
                versions on scan 0 compacted to its bucket (24576 rows,
-               q_tile 512, band 2048, voxel 0.1 m, the stage-1 path's shape)
-               and on a 4096-row compaction at band 1024;
+               q_tile 512, band 2048, voxel 0.1 m, the stage-1 path's shape),
+               on a 4096-row compaction at band 1024 and on scan 0 at
+               fgr_features_sorted's default band 4096; K6 also bit for bit
+               against the serial sums in its own ascending-row order;
   7. stage 1 — pipeline.run_stage1_fgr (banded features, mutual matching,
                tuple test, 300 GNC iterations) over the circuit, cold and
                warm; every pair within 0.5 m / 5 deg of ground truth, and K1,
@@ -319,14 +322,12 @@ def stage2_config(output_root: str):
         retry_failed=False, scale_capacities="auto", output_root=output_root)
 
 
-def check_k1(label: str, src, tgt, T, max_dist: float, band: int):
-    """K1 against its plain version on the slabs that ``nn1_band_query``
-    builds for (src moved by T) in tgt; returns (max |d2 err|, ms, plain ms).
-    In-radius sets must be identical and d2 within 1e-5 relative."""
+def k1_inputs(src, tgt, T, max_dist: float, band: int):
+    """(slab starts, sorted queries, sorted refs) that ``nn1_band_query``
+    hands K1 (q_tile 1024) for the cloud src moved by T in tgt."""
     import torch
 
     from pcr_tpu_torch.ops import band_nn
-    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
     from pcr_tpu_torch.utils import se3
     from pcr_tpu_torch.utils.cloud import pad_rows
 
@@ -335,28 +336,56 @@ def check_k1(label: str, src, tgt, T, max_dist: float, band: int):
     nq_pad = -(-p.shape[0] // 1024) * 1024
     q = torch.where(src.mask[:, None], p, band_nn.SENTINEL)[index.q_order]
     q = pad_rows(q, nq_pad, band_nn.SENTINEL).contiguous()
-    starts = band_nn.slab_starts(index, q, max_dist, 1024, band)
-    args = (starts, q, index.r_sorted)
-    d_k, i_k = nk.nn1_band(*args, q_tile=1024, band=band)
-    d_p, i_p = nk.nn1_band_reference(*args, q_tile=1024, band=band)
-    md2 = max_dist * max_dist
-    in_k, in_p = d_k <= md2, d_p <= md2
-    if not torch.equal(in_k, in_p):
-        raise AssertionError(f"K1 {label}: in-radius sets differ "
-                             f"({int((in_k ^ in_p).sum())} queries)")
-    rel = ((d_k - d_p).abs() / torch.clamp(d_p.abs(), min=1e-12))[in_p]
-    if rel.numel() and float(rel.max()) > 1e-5:
-        raise AssertionError(f"K1 {label}: d2 relative error {float(rel.max())}")
-    err = float((d_k - d_p)[in_p].abs().max()) if int(in_p.sum()) else 0.0
-    ms = cuda_ms(lambda: nk.nn1_band(*args, q_tile=1024, band=band), 20)
-    plain_ms = cuda_ms(lambda: nk.nn1_band_reference(*args, q_tile=1024, band=band), 5)
-    nr = index.r_sorted.shape[0]
-    lim = bound(4 * starts.shape[0] + 12 * q.shape[0] + 12 * nr + 8 * q.shape[0],
-                slab_work(starts, q, index.r_sorted, 1024, band, 0.0))
+    return band_nn.slab_starts(index, q, max_dist, 1024, band), q, index.r_sorted
+
+
+def first_min_rows(starts, q, r, q_tile: int, band: int, d_min):
+    """Absolute row of each query's first slab row at d2 == d_min (its first
+    minimum), found without relying on torch.min's tie rule."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import common
+
+    n_tiles = starts.shape[0]
+    q_t, dm = q.view(n_tiles, q_tile, 3), d_min.view(n_tiles, q_tile)
+    col = torch.arange(2 * band, device=q.device)
+    rows = []
+    for g in common.tile_groups(n_tiles, q_tile * 2 * band):
+        d2 = common.sqdist_tiles(q_t[g], common.slabs(starts[g], r, band))
+        j = torch.where(d2 == dm[g][..., None], col, 2 * band).amin(dim=-1)
+        rows.append(starts[g].long()[:, None] + j)
+    return torch.cat(rows).reshape(-1).to(torch.int32)
+
+
+def check_k1(label: str, src, tgt, T, max_dist: float, band: int):
+    """K1 against its plain version on the slabs that ``nn1_band_query``
+    builds for (src moved by T) in tgt: d2 bit-equal (the same rounded
+    formula) and every row the query's first minimum; returns (max |d2
+    err| (0), ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    starts, q, r = k1_inputs(src, tgt, T, max_dist, band)
+    d_k, i_k = nk.nn1_band(starts, q, r, q_tile=1024, band=band)
+    d_p, i_p = nk.nn1_band_reference(starts, q, r, q_tile=1024, band=band)
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"K1 {label}: d2 differs at {int((d_k != d_p).sum())} queries, "
+                             f"max {float((d_k - d_p).abs().max())}")
+    first = first_min_rows(starts, q, r, 1024, band, d_p)
+    if not torch.equal(i_k, first):
+        raise AssertionError(f"K1 {label}: {int((i_k != first).sum())} rows are not the "
+                             f"first minimum")
+    in_p = d_p <= max_dist * max_dist
+    ms = cuda_ms(lambda: nk.nn1_band(starts, q, r, q_tile=1024, band=band), 20)
+    plain_ms = cuda_ms(lambda: nk.nn1_band_reference(starts, q, r, q_tile=1024, band=band), 5)
+    lim = bound(4 * starts.shape[0] + 12 * q.shape[0] + 12 * r.shape[0] + 8 * q.shape[0],
+                slab_work(starts, q, r, 1024, band, 0.0))
     print(f"K1 nn1_band {label}: {q.shape[0]} q, band {band}, {int(in_p.sum())} in radius, "
-          f"rows equal {float((i_k == i_p).float().mean()):.6f}, "
-          f"max |d2 err| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms, *lim
+          f"d2 bit-equal, rows the first minimum (torch.min's: "
+          f"{int((i_p != first).sum())} differ), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {lim[0]:.4f} ms")
+    return float((d_k - d_p).abs().max()), ms, plain_ms, *lim
 
 
 @dataclasses.dataclass
@@ -498,17 +527,22 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
 
     src_pyr = multiscale.build_pyramid(src, len(scales), caps)
     tgt_pyr = multiscale.build_pyramid(tgt, len(scales), caps)
-    k1 = []
+    k1, k1_labels = [], []
     for s, (v, cap, dist) in enumerate(zip(scales, caps, dists)):
         band = gicp._band_width(cap, 1024)
         k1_gicp_finest = check_k1(f"GICP scale {v:.1f} m", src_pyr[s], tgt_pyr[s], T,
                                   dist, band)
         k1.append(k1_gicp_finest)
+        k1_labels.append(f"GICP {v:.1f} m ({cap} rows, band {band})")
         band_f = gicp._band_width(cap, 2048)
         if band_f != band:
             k1.append(check_k1(f"final metrics scale {v:.1f} m", src_pyr[s], tgt_pyr[s], T,
                                dist, band_f))
+            k1_labels.append(f"final metrics {v:.1f} m (band {band_f})")
     k1.append(check_k1("gate", src, tgt, T, 2 * cfg.voxel_size, 2048))
+    k1_labels.append("gate (band 2048)")
+    print("K1 ms by shape: " + "; ".join(f"{name} {r[1]:.4f} (bound {r[3]:.4f})"
+                                         for name, r in zip(k1_labels, k1)))
 
     return [
         record("nn1_band", "pcr_tpu_torch/csrc/band_nn.cu",
@@ -712,6 +746,28 @@ def check_k5_result(label: str, got, plain) -> float:
     return float((h_k - h_p).abs().max())
 
 
+def fpfh_serial(starts, q, r, tau, spfh_r, q_tile: int, band: int):
+    """K6's sums in K6's own order: each feature over the kept pairs in
+    ascending slab row, one rounded product and one rounded add a row (two
+    eager torch operations, no fused multiply-add), w = 1 / max(d2, 1e-12)
+    and d2 as the kernel rounds them.  K6 must equal this bit for bit."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import common
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+
+    n_tiles = starts.shape[0]
+    d2 = common.sqdist_tiles(q.view(n_tiles, q_tile, 3), common.slabs(starts, r, band))
+    keep = fk.pair_keep(d2, tau.view(n_tiles, q_tile), starts, q_tile, band)
+    w = torch.reciprocal(torch.clamp(d2, min=1e-12))
+    slab_spfh = common.slabs(starts, spfh_r, band)
+    acc = torch.zeros((n_tiles, q_tile, fk.FEATURE_DIM), dtype=torch.float32, device=q.device)
+    for j in range(2 * band):
+        acc = torch.where(keep[:, :, j, None], acc + w[:, :, j, None] * slab_spfh[:, None, j],
+                          acc)
+    return acc.reshape(n_tiles * q_tile, fk.FEATURE_DIM)
+
+
 def check_k6_result(label: str, a_k, a_p) -> float:
     """K6's sums of <= 201 nonnegative terms in another order than the plain
     version's: within 2 * 201 * 2^-24 (2.4e-5) of it, relative; returns the
@@ -724,7 +780,10 @@ def check_k6_result(label: str, a_k, a_p) -> float:
 
 def check_k4_k6(label: str, c, voxel_size: float, bucket: int, band: int):
     """K4, K5 and K6 against their plain versions on ``feature_inputs``'
-    tensors; returns one (err, ms, plain ms, bound ms, bound by) per kernel."""
+    tensors, and K6 bit for bit against ``fpfh_serial``; returns one (err,
+    ms, plain ms, bound ms, bound by) per kernel."""
+    import torch
+
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
 
     qt = FEATURE_Q_TILE
@@ -755,13 +814,17 @@ def check_k4_k6(label: str, c, voxel_size: float, bucket: int, band: int):
           f"err| {err5:.3e}, kernel {ms5:.4f} ms, plain {plain5:.4f} ms, "
           f"bound {lim5[0]:.4f} ms")
 
-    err6 = check_k6_result(label, fk.fpfh(*k6, q_tile=qt, band=band), a_p)
+    a_k = fk.fpfh(*k6, q_tile=qt, band=band)
+    err6 = check_k6_result(label, a_k, a_p)
+    if not torch.equal(a_k, fpfh_serial(*k6, qt, band)):
+        raise AssertionError(f"K6 {label}: sums differ from the ascending-row serial sums")
     ms6 = cuda_ms(lambda: fk.fpfh(*k6, q_tile=qt, band=band), 10)
     plain6 = cuda_ms(lambda: fk.fpfh_reference(*k6, q_tile=qt, band=band), 3)
     lim6 = bound(4 * n_tiles + 12 * n_pad + 12 * nr_pad + 4 * n_pad + 132 * nr_pad
                  + 132 * n_pad,
                  slab_work(starts, p_q, p_r, qt, band, 67.0, tau=tau_p, exclude_self=True))
-    print(f"K6 fpfh {label}: {n_pad} rows, band {band}, max |sum err| {err6:.3e} (max sum "
+    print(f"K6 fpfh {label}: {n_pad} rows, band {band}, sums bit-equal to the serial "
+          f"ascending-row sums, max |sum err| against the plain version {err6:.3e} (max sum "
           f"{float(a_p.max()):.3e}), kernel {ms6:.4f} ms, plain {plain6:.4f} ms, "
           f"bound {lim6[0]:.4f} ms")
     return ((err4, ms4, plain4, *lim4), (err5, ms5, plain5, *lim5),
@@ -769,19 +832,22 @@ def check_k4_k6(label: str, c, voxel_size: float, bucket: int, band: int):
 
 
 def phase_feature_kernels(clouds) -> list[dict]:
-    """K4-K6 at the stage-1 path's shape (scan 0 at its bucket, band 2048)
-    and at a smaller one (a 4096-row compaction of scan 0, band 1024); the
-    JSON record keeps the first shape's times."""
+    """K4-K6 at the stage-1 path's shape (scan 0 at its bucket, band 2048),
+    at a smaller one (a 4096-row compaction of scan 0, band 1024) and at
+    fgr_features_sorted's own default band 4096; the JSON record keeps the
+    first shape's times."""
     from pcr_tpu_torch.utils import cloud
 
     c = clouds[0]
-    main = check_k4_k6("scan 0", c, 0.1, cloud.bucket_capacity(c, 4096), FEATURE_BAND)
+    bucket = cloud.bucket_capacity(c, 4096)
+    main = check_k4_k6("scan 0", c, 0.1, bucket, FEATURE_BAND)
     small = check_k4_k6("4096 rows", c, 0.1, 4096, 1024)
+    widest = check_k4_k6("scan 0, band 4096", c, 0.1, bucket, 4096)
     src = "pcr_tpu_torch/csrc/fpfh.cu"
     fk_py = "pcr_tpu/ops/pallas/feature_kernels.py"
-    return [record(name, src, f"{fk_py}:{line}", [a, b], a)
-            for name, line, a, b in zip(("moments", "spfh", "fpfh"), (158, 317, 402),
-                                        main, small)]
+    return [record(name, src, f"{fk_py}:{line}", [a, b, w], a)
+            for name, line, a, b, w in zip(("moments", "spfh", "fpfh"), (158, 317, 402),
+                                           main, small, widest)]
 
 
 def stage1_config(output_root: str):

@@ -8,8 +8,6 @@ namespace pcr {
 
 // Any query-candidate pair with d2 above this involves a PAD_COORD sentinel.
 constexpr float kRealD2Max = 1.0e10f;
-// Threads per block of the one-thread-a-query slab kernel K6.
-constexpr int kMaxThreads = 128;
 constexpr int kBisectSteps = 10;
 
 // Squared distance as ((dx*dx + dy*dy) + dz*dz) with every operation rounded
@@ -24,26 +22,9 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
-// Slab start (element offset) of the q_tile-row tile this block lies in.
-// q_tile is a multiple of blockDim.x, so a block never straddles tiles.
-__device__ __forceinline__ int tile_start(const int* starts, int q_tile) {
-  return starts[(blockIdx.x * blockDim.x) / q_tile];
-}
-
-// Stage `cols` float columns of the slab rows [start, start + slab) into
-// shared memory, column c at dst + c * slab.  src is row-major with `cols`
-// floats a row.
-__device__ __forceinline__ void stage_slab(const float* __restrict__ src, int cols,
-                                           int start, int slab, float* dst) {
-  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
-    const float* row = src + static_cast<size_t>(cols) * (start + j);
-    for (int c = 0; c < cols; ++c) dst[c * slab + j] = row[c];
-  }
-}
-
-// The helpers below serve K2 and K3 (csrc/preprocess.cu) and K4 and K5
-// (csrc/fpfh.cu), where a team of TEAM lanes shares one query and several
-// bisection levels are counted in one pass over the slab.
+// The helpers below serve K2 and K3 (csrc/preprocess.cu) and K4-K6
+// (csrc/fpfh.cu), where a team of TEAM lanes shares one query and, in K2-K5,
+// several bisection levels are counted in one pass over the slab.
 
 // The lanes of the calling thread's team: TEAM consecutive lanes of its warp.
 template <int TEAM>
@@ -284,10 +265,6 @@ __device__ __forceinline__ void team_moments(const ROWS& rows, int n, int lane,
     for (int f = 0; f < 9; ++f) out[f] = acc[f];
     out[9] = static_cast<float>(cnt);
   }
-}
-
-inline int launch_threads(int q_tile) {
-  return q_tile < kMaxThreads ? q_tile : kMaxThreads;
 }
 
 // Dynamic shared memory above the 48 KB default must be reserved first.

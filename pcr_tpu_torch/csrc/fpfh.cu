@@ -66,10 +66,22 @@
 //    ((dx*dx + dy*dy) + dz*dz) for tau and the kept set to stay bit-equal; a
 //    TF32 or bf16 product reorders d2 at LiDAR coordinates).
 //
-// K6 is the one-thread-a-query design: the block holds the slab's
-// coordinates in shared memory (48 KB at band 2048), a thread keeps its 33
-// sums in registers and reads the kept rows' SPFH from L2 (the 4096 x 33
-// SPFH slab, 540 KB, does not fit in shared memory).
+// K6 reduces over K5's kept pairs (about 200 of a query's 4096 slab rows):
+// out[q] = sum of w * spfh[row], w = 1 / max(d2, 1e-12).  Bound on the H100:
+// the slab sweep that finds the kept rows (~100 M pairs a scan, as K5's
+// listing sweep) and the latency of the kept rows' SPFH reads from L2 (the
+// 4096 x 33 SPFH slab, 540 KB, does not fit in shared memory; a scan's SPFH,
+// 3.2 MB, stays in L2).  Design: a team of kTeam lanes a query over the
+// float4 slab; lane f sums feature f (lane 0 also feature 32), so a kept
+// row's SPFH is one coalesced 132-byte read of the team instead of 33
+// scattered reads of one thread, and the 33 sums need one register a lane.
+// The kept rows of each step are walked from the step's ballot with __ffs
+// (a list of kept rows in shared memory consumed several at a time, or a
+// prefetch of the next kept row, was no faster at band 2048, PERF.md);
+// blocks of 32 warps share each staged slab among 32 queries, and at band
+// 4096 (128 KB a slab, one block an SM) keep 32 warps on each SM.  Each
+// feature is summed in ascending row order with the same rounded operations
+// as the former one-thread-a-query walk, so the sums did not change by a bit.
 //
 // d2 and every Darboux operation are rounded one by one (`__f*_rn`, no FMA
 // contraction), in the order of the plain PyTorch versions, and the file is
@@ -86,12 +98,10 @@ using pcr::bisect;
 using pcr::blocks_for;
 using pcr::counted_d2;
 using pcr::Geometry;
-using pcr::launch_threads;
 using pcr::ListedRows;
 using pcr::reserve_smem;
 using pcr::SlabRows;
 using pcr::stage_rows;
-using pcr::tile_start;
 
 // Chosen on the H100 by tools/tune_features.py (PERF.md).
 constexpr int kTeam = 32;             // lanes a query
@@ -102,6 +112,7 @@ constexpr int kMomentsList = 256;     // K4: candidate rows a team can list (0: 
 constexpr int kSpfhList = 1024;       // K5: the same
 constexpr bool kCompact = true;       // K5: kept pairs compacted over the team
 constexpr bool kStageNormals = false; // K5: neighbour normals in shared memory
+constexpr int kFpfhWarps = 32;        // K6: warps (queries at a time) a block
 
 constexpr int kBins = 11;
 constexpr int kFeat = 33;
@@ -375,42 +386,79 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-__global__ void fpfh_kernel(const int* __restrict__ starts,
-                            const float* __restrict__ q,
-                            const float* __restrict__ r,
-                            const float* __restrict__ tau_in,
-                            const float* __restrict__ spfh, int q_tile,
-                            int band, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int slab = 2 * band;
-  const float* sx = smem;
-  const float* sy = smem + slab;
-  const float* sz = smem + 2 * slab;
-  const int start = tile_start(starts, q_tile);
-  pcr::stage_slab(r, 3, start, slab, smem);
-  __syncthreads();
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
-  const float tau = tau_in[qi];
-  const int self_col = qi - start;
-  float acc[kFeat];
-#pragma unroll
-  for (int f = 0; f < kFeat; ++f) acc[f] = 0.0f;
-  for (int j = 0; j < slab; ++j) {
-    const float d = pcr::sqdist(qx, qy, qz, sx[j], sy[j], sz[j]);
-    if (d < pcr::kRealD2Max && d <= tau && d > 0.0f && j != self_col) {
-      const float w = __frcp_rn(fmaxf(d, kTiny));
-      const float* row = spfh + kFeat * static_cast<size_t>(start + j);
-#pragma unroll
-      for (int f = 0; f < kFeat; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, row[f]));
+// K6 for one query: the team sweeps the slab kTeam rows a step and adds, in
+// ascending row order, w * spfh[row] for each kept row (real, d2 <= tau,
+// d2 > 0, not the query's own column), w = 1 / max(d2, 1e-12).  Each step's
+// kept rows are taken from its ballot with __ffs, the weight shuffled from
+// the lane that computed it.  Lane f holds feature f, lane 0 feature 32 as
+// well; a kept row's SPFH is one coalesced 132-byte read of the team.  Every
+// feature is summed in ascending row order with the same rounded operations
+// as the one-thread-a-query walk, so the sums are that walk's bit for bit.
+__device__ __forceinline__ void fpfh_query(const float4* s4, int slab, int lane, float qx,
+                                           float qy, float qz, float tau, int self_col,
+                                           const float* __restrict__ spfh, float& acc,
+                                           float& acc32) {
+  for (int j0 = 0; j0 < slab; j0 += kTeam) {
+    const int j = j0 + lane;
+    float d = 0.0f;
+    if (j < slab) {
+      const float4 p = s4[j];
+      d = pcr::sqdist(qx, qy, qz, p.x, p.y, p.z);
+    }
+    const bool kept =
+        j < slab && d < pcr::kRealD2Max && d <= tau && d > 0.0f && j != self_col;
+    const float w = __frcp_rn(fmaxf(d, kTiny));
+    unsigned votes = __ballot_sync(0xffffffffu, kept);
+    while (votes) {                                  // the same for the whole team
+      const int b = __ffs(votes) - 1;
+      votes &= votes - 1u;
+      const float wb = __shfl_sync(0xffffffffu, w, b);
+      const float* row = spfh + kFeat * static_cast<size_t>(j0 + b);
+      acc = __fadd_rn(acc, __fmul_rn(wb, row[lane]));
+      if (lane == 0) acc32 = __fadd_rn(acc32, __fmul_rn(wb, row[kTeam]));
     }
   }
-#pragma unroll
-  for (int f = 0; f < kFeat; ++f) out[kFeat * static_cast<size_t>(qi) + f] = acc[f];
+}
+
+// Shared memory of a K6 block: the slab as float4 rows.
+size_t fpfh_smem(int band) { return sizeof(float4) * 2 * static_cast<size_t>(band); }
+
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+    fpfh_kernel(const int* __restrict__ starts, const float* __restrict__ q,
+                const float* __restrict__ r, const float* __restrict__ tau_in,
+                const float* __restrict__ spfh, int q_tile, int band,
+                float* __restrict__ out) {
+  using G = Geometry<kTeam, WARPS, 1>;
+  extern __shared__ float4 s4[];
+  const int slab = 2 * band;
+  const int per_tile = (q_tile + G::kQueries - 1) / G::kQueries;
+  const int tile = blockIdx.x / per_tile;
+  const int start = starts[tile];
+  stage_rows<false>(r, nullptr, start, slab, s4);
+  __syncthreads();
+  const int team = threadIdx.x / kTeam, lane = threadIdx.x % kTeam;
+  const int local = (blockIdx.x % per_tile) * G::kQueries + team;
+  if (local >= q_tile) return;                       // the same for the whole team
+  const int qi = tile * q_tile + local;
+  float acc = 0.0f, acc32 = 0.0f;
+  fpfh_query(s4, slab, lane, q[3 * qi], q[3 * qi + 1], q[3 * qi + 2], tau_in[qi], qi - start,
+             spfh + kFeat * static_cast<size_t>(start), acc, acc32);
+  float* o = out + kFeat * static_cast<size_t>(qi);
+  o[lane] = acc;
+  if (lane == 0) o[kTeam] = acc32;
 }
 
 // A candidate list names slab rows in 16 bits.
 constexpr int kMaxListedSlab = 1 << 16;
+
+// Shared memory of a K4 block: the slab as float4 rows, then every team's
+// list of LIST candidate rows.
+template <int TEAM, int WARPS, int QPT, int LIST>
+size_t moments_smem(int band) {
+  return sizeof(float4) * 2 * static_cast<size_t>(band) +
+         sizeof(unsigned short) * LIST * Geometry<TEAM, WARPS, QPT>::kTeams;
+}
 
 template <int TEAM, int WARPS, int QPT, int LEVELS, int LIST>
 int launch_moments(const int* starts, const float* q, const float* r, const float* center,
@@ -420,8 +468,7 @@ int launch_moments(const int* starts, const float* q, const float* r, const floa
   auto kernel = pcr::needs_sentinel_check(log_hi)
                     ? &moments_kernel<TEAM, WARPS, QPT, LEVELS, LIST, true>
                     : &moments_kernel<TEAM, WARPS, QPT, LEVELS, LIST, false>;
-  const size_t smem = sizeof(float4) * 2 * static_cast<size_t>(band) +
-                      sizeof(unsigned short) * LIST * Geometry<TEAM, WARPS, QPT>::kTeams;
+  const size_t smem = moments_smem<TEAM, WARPS, QPT, LIST>(band);
   cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks_for<TEAM, WARPS, QPT>(n_pad, q_tile), 32 * WARPS, smem, stream>>>(
@@ -447,10 +494,23 @@ int launch_spfh(const int* starts, const float* q, const float* nq, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int WARPS>
+int launch_fpfh(const int* starts, const float* q, const float* r, const float* tau,
+                const float* spfh, int n_pad, int q_tile, int band, float* out,
+                cudaStream_t stream) {
+  auto kernel = &fpfh_kernel<WARPS>;
+  const size_t smem = fpfh_smem(band);
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks_for<kTeam, WARPS, 1>(n_pad, q_tile), 32 * WARPS, smem, stream>>>(
+      starts, q, r, tau, spfh, q_tile, band, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The wrappers guarantee n_pad % q_tile == 0 and starts[t] + 2*band <= the
-// ref rows of r, nr and spfh; for K6 also q_tile < 128 or q_tile % 128 == 0.
+// ref rows of r, nr and spfh, and that the kernel's shared memory fits the card.
 extern "C" int pcr_moments(const int* starts, const float* q, const float* r,
                            const float* center, int n_pad, int q_tile, int band,
                            int normal_k, float log_lo, float log_hi, float* out,
@@ -473,11 +533,20 @@ extern "C" int pcr_spfh(const int* starts, const float* q, const float* nq,
 extern "C" int pcr_fpfh(const int* starts, const float* q, const float* r,
                         const float* tau, const float* spfh, int n_pad,
                         int q_tile, int band, float* out, cudaStream_t stream) {
-  const int threads = launch_threads(q_tile);
-  const size_t smem = sizeof(float) * 3 * 2 * static_cast<size_t>(band);
-  cudaError_t err = reserve_smem(fpfh_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fpfh_kernel<<<n_pad / threads, threads, smem, stream>>>(
-      starts, q, r, tau, spfh, q_tile, band, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fpfh<kFpfhWarps>(starts, q, r, tau, spfh, n_pad, q_tile, band, out, stream);
+}
+
+// Shared memory a block of each kernel asks for at this band, which the
+// wrappers hold against the card's limit before they launch.
+extern "C" int pcr_moments_smem(int band) {
+  return static_cast<int>(moments_smem<kTeam, kWarps, kQueriesPerTeam, kMomentsList>(band));
+}
+
+extern "C" int pcr_spfh_smem(int band) {
+  return static_cast<int>(
+      spfh_smem<kTeam, kWarps, kQueriesPerTeam, kSpfhList, kStageNormals>(band));
+}
+
+extern "C" int pcr_fpfh_smem(int band) {
+  return static_cast<int>(fpfh_smem(band));
 }

@@ -28,7 +28,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of each C entry point (pointers and the stream as c_void_p);
-# every entry point returns cudaGetLastError() after its launch.
+# every launching entry point returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "pcr_nn1_band": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "pcr_nn1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -37,6 +37,10 @@ SIGNATURES = {
     "pcr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "pcr_spfh": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
     "pcr_fpfh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # bytes of shared memory a block of K4, K5, K6 asks for at a band
+    "pcr_moments_smem": [_I],
+    "pcr_spfh_smem": [_I],
+    "pcr_fpfh_smem": [_I],
 }
 
 

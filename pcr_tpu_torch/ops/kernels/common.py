@@ -35,8 +35,6 @@ def check_tiling(n_rows: int, q_tile: int, n_tiles: int, band: int,
     come clipped to [0, nr_pad - 2*band] from their callers)."""
     if n_rows != n_tiles * q_tile:
         raise ValueError(f"{n_rows} query rows != {n_tiles} tiles x {q_tile}")
-    if not (q_tile < 128 or q_tile % 128 == 0):
-        raise ValueError(f"q_tile {q_tile} must be below 128 or a multiple of 128")
     if 2 * band > nr_pad:
         raise ValueError(f"slab of 2*{band} rows exceeds the {nr_pad} ref rows")
 

@@ -54,7 +54,18 @@ tau and the kept set to equal the plain version's.
 
 K6 ``fpfh`` replaces ``feature_kernels.py:fpfh_pallas``: over K5's kept pairs,
 the sum of (1/max(d2, 1e-12)) * spfh[row]; the caller normalises the blocks
-and adds the query's own SPFH.
+and adds the query's own SPFH.  It is bound by the slab sweep that finds the
+kept rows (as K5's listing sweep) and by the latency of reading their SPFH
+rows, which stay in L2.  A team of 32 lanes takes a query over the float4
+slab, 32 queries a block; the kept rows of each 32-row step are walked in
+ascending order from the step's ballot, lane f summing feature f (lane 0
+also feature 32), so each kept row's SPFH is one coalesced 132-byte read of
+the team.  Every feature is summed in ascending row order with the same
+rounded operations as a one-thread-a-query walk.
+
+Each of K4-K6 holds its slab (K4 and K5 also their lists) in shared memory;
+the wrappers refuse, by band and bytes, a band whose block would need more
+than the card gives.
 
 The plain versions of K4-K6 follow the XLA path of ``fgr_features_sorted``
 (the same tiles and slabs, d2 by ``common.sqdist_tiles``) over groups of
@@ -259,6 +270,16 @@ def _check_listed_slab(band: int) -> None:
                          f"kernels K4 and K5 can list")
 
 
+def _check_shared_memory(name: str, smem_bytes, band: int, device: torch.device) -> None:
+    """Raise unless a block of kernel ``name`` at this band (``smem_bytes(band)``
+    bytes of shared memory, from the library) fits the card's limit a block."""
+    need = smem_bytes(band)
+    have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(f"band {band}: kernel {name} needs {need} bytes of shared memory "
+                         f"a block, more than the {have} bytes the card gives one")
+
+
 def moments_reference(starts_el, q, r, center, voxel_size, *, q_tile: int,
                       band: int, normal_k: int = 20):
     """Plain PyTorch version of K4: (n_pad, 10) f32 moments."""
@@ -297,9 +318,10 @@ def moments(starts_el, q, r, center, voxel_size, *, q_tile: int, band: int,
     common.check(r, "r", torch.float32, (nr_pad, 3))
     common.check(center, "center", torch.float32, (n_tiles, 3))
     _check_listed_slab(band)
+    lib = build.library()
+    _check_shared_memory("moments", lib.pcr_moments_smem, band, q.device)
     out = torch.empty((n_pad, 10), dtype=torch.float32, device=q.device)
     lo, hi = _log_bounds(voxel_size, 0.05, 2.0)
-    lib = build.library()
     with torch.cuda.device(q.device):
         err = lib.pcr_moments(
             starts_el.data_ptr(), q.data_ptr(), r.data_ptr(), center.data_ptr(), n_pad,
@@ -396,11 +418,12 @@ def spfh(starts_el, q, nq, r, nr, voxel_size, *, q_tile: int, band: int,
     for t, name in ((r, "r"), (nr, "nr")):
         common.check(t, name, torch.float32, (nr_pad, 3))
     _check_listed_slab(band)
+    lib = build.library()
+    _check_shared_memory("spfh", lib.pcr_spfh_smem, band, q.device)
     hist = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
     tau = torch.empty(n_pad, dtype=torch.float32, device=q.device)
     lo, hi = _log_bounds(voxel_size, 0.05, 10.0)
     lo3, scale12, scale3 = _bin_constants()
-    lib = build.library()
     with torch.cuda.device(q.device):
         err = lib.pcr_spfh(
             starts_el.data_ptr(), q.data_ptr(), nq.data_ptr(), r.data_ptr(), nr.data_ptr(),
@@ -443,8 +466,9 @@ def fpfh(starts_el, q, r, tau, spfh_r, *, q_tile: int, band: int):
     common.check(r, "r", torch.float32, (nr_pad, 3))
     common.check(tau, "tau", torch.float32, (n_pad,))
     common.check(spfh_r, "spfh_r", torch.float32, (nr_pad, FEATURE_DIM))
-    out = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
     lib = build.library()
+    _check_shared_memory("fpfh", lib.pcr_fpfh_smem, band, q.device)
+    out = torch.empty((n_pad, FEATURE_DIM), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.pcr_fpfh(
             starts_el.data_ptr(), q.data_ptr(), r.data_ptr(), tau.data_ptr(),

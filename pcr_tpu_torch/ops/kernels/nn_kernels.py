@@ -13,14 +13,20 @@ row (first minimum on ties).  Masked refs are parked at PAD_COORD by the
 caller, so the kernel takes no mask.
 
 Bound on the H100: issue rate, ~10 ALU ops per (query, candidate) pair with
-each candidate row read once per block from L2.  Both kernels keep one query
-per thread with its running minimum in registers and stream the candidates
-through shared memory in fixed-size chunks, so the band width or the ref
-size does not set the shared memory size.  Unlike the TPU kernels they
-compute d2 directly as (q - r)^2, so no re-score is needed for precision.
-K7 also splits the ref rows over several blocks per query tile (too few
-query blocks would leave most SMs idle) and merges the partial minima in a
-second small kernel.
+each candidate row read once per block from L2.  K1 stages the slab as
+float4 rows in shared memory (one 16-byte load a row) and splits each
+query's slab rows over several lanes by residue, so that the 10240-32768
+queries of the main path fill the card's 132 SMs with warps; each thread
+takes a few queries, so one shared load serves several pairs.  Each lane
+keeps the first minimum of its rows and the lanes' minima merge by shuffles,
+lexicographically on (d2, row): the slab's first minimum, as torch.min.
+K7 keeps one query per thread with its running minimum in registers and
+streams the candidates through shared memory in fixed-size chunks, so the
+ref size does not set the shared memory size; it also splits the ref rows
+over several blocks per query tile (too few query blocks would leave most
+SMs idle) and merges the partial minima in a second small kernel.  Unlike
+the TPU kernels both compute d2 directly as (q - r)^2, so no re-score is
+needed for precision.
 """
 
 from __future__ import annotations

@@ -32,10 +32,13 @@ from .utils import poses_io, se3
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """The fields of ``pcr_tpu.pipeline.PipelineConfig`` that the ported
-    branches read, with the same defaults (the reference's constants)."""
+    branches read, with the same defaults (the reference's constants), and
+    ``fgr_iterations``, which neither package reads."""
 
     dataset: str = "Facade"
     voxel_size: float = 0.1
+    # Read by neither package: the GNC always runs the reference's 300 steps.
+    # Kept so that a configuration written for pcr_tpu constructs here too.
     fgr_iterations: int = 300
     fgr_seed: int = 0
     mgicp_scales: int = 5
@@ -183,8 +186,7 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
         src, feat_src = features(src_i)
         tgt, feat_tgt = features(tgt_i)
         B = max(src.capacity, tgt.capacity)
-        opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)._replace(
-            iteration_number=cfg.fgr_iterations)
+        opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)
         res = _fgr_pair_step(src, feat_src, tgt, feat_tgt, cfg.fgr_seed + src_i, B, opts)
         inflight.append((k, src_i, tgt_i, res))
         # keep only the features the next pair still needs

@@ -187,3 +187,16 @@ def test_stage1_refuses_unported_branches(tmp_path):
         cfg = t_pipe.PipelineConfig(**dict(KW, output_root=str(tmp_path), **kw))
         with pytest.raises(exc):
             t_pipe.run_stage1_fgr(cfg, clouds=clouds, n=2)
+
+
+def test_stage1_ignores_fgr_iterations_as_pcr_tpu_does(stage1_runs, tmp_path):
+    """pcr_tpu's stage 1 never reads ``PipelineConfig.fgr_iterations``: its
+    GNC always runs the reference's 300 steps (``default_options_capacity``).
+    The port does the same, so a non-default value leaves the stage-1 poses
+    equal, bit for bit, to those at the default."""
+    _, out_t, _, _, _ = stage1_runs
+    scans, _ = bumpy_circuit(np.random.default_rng(1), n_clouds=N_SCANS, n=800, step=0.3)
+    cfg = t_pipe.PipelineConfig(output_root=str(tmp_path), fgr_iterations=30, **KW)
+    out = t_pipe.run_stage1_fgr(cfg, n=N_SCANS, clouds=[
+        t_cloud.from_numpy(s, 1024, device="cpu") for s in scans])
+    np.testing.assert_array_equal(out, out_t)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pcr_tpu_torch.ops import knn, preprocess
 from pcr_tpu_torch.ops.kernels import feature_kernels, nn_kernels
 from pcr_tpu_torch.utils import cloud
@@ -23,13 +24,23 @@ def cuda_rng():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band,q_tile", [(1024, 1024), (2048, 1024), (256, 128)])
-def test_nn1_band_kernel_matches_plain(cuda_rng, band, q_tile):
+@pytest.mark.parametrize("kind", ["uniform", "lattice"])
+@pytest.mark.parametrize("band,q_tile", [(1024, 1024), (2048, 1024), (256, 128), (4096, 1024),
+                                         (512, 64)])
+def test_nn1_band_kernel_matches_plain(cuda_rng, band, q_tile, kind):
     """Bit-equal distances (the same rounded formula) and equal rows (both
-    keep the first minimum); the wrapper counts its launch."""
+    keep the first minimum; ``lattice`` puts refs and queries on 0.5 m and
+    0.25 m lattices with duplicated refs, so exact ties are everywhere); the
+    wrapper counts its launch."""
     dev = torch.device("cuda")
-    r = torch.as_tensor(cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32), device=dev)
-    q = torch.as_tensor(cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32), device=dev)
+    if kind == "lattice":
+        r_np = cuda_rng.integers(-40, 40, size=(8192, 3)).astype(np.float32) * 0.5
+        r_np[4096:4296] = r_np[:200]
+        q_np = cuda_rng.integers(-80, 80, size=(8192, 3)).astype(np.float32) * 0.25
+    else:
+        r_np = cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32)
+        q_np = cuda_rng.uniform(-20, 20, size=(8192, 3)).astype(np.float32)
+    r, q = torch.as_tensor(r_np, device=dev), torch.as_tensor(q_np, device=dev)
     rs = r[torch.argsort(r[:, 0], stable=True)]
     rs = torch.cat([rs, torch.full((2 * band, 3), 1e6, device=dev)]).contiguous()
     qs = q[torch.argsort(q[:, 0], stable=True)].contiguous()
@@ -141,13 +152,16 @@ def _feature_cloud(rng, n: int, kind: str):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["surface", "sparse", "duplicated", "crowded"])
 @pytest.mark.parametrize("n,band,q_tile", [(4096, 512, 512), (8192, 1024, 512),
-                                            (2048, 256, 256), (24576, 2048, 512)])
+                                            (2048, 256, 256), (24576, 2048, 512),
+                                            (16384, 4096, 512)])
 def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile, kind):
-    """K4-K6 on a bumpy 0.1 m-voxel surface (the last shape is the stage-1
-    path's): K4's counts and K5's tau equal (same d2 formula, same
-    bisection), K5's bins equal (the same rounded operations, integer
-    counts), K4's and K6's sums equal up to their order (f32, 1e-5 and 2.4e-5
-    relative).  Each wrapper counts its launch."""
+    """K4-K6 on a bumpy 0.1 m-voxel surface (the fourth shape is the stage-1
+    path's, the last one fgr_features_sorted's default band): K4's counts
+    and K5's tau equal (same d2 formula, same bisection), K5's bins equal
+    (the same rounded operations, integer counts), K4's and K6's sums equal
+    up to their order (f32, 1e-5 and 2.4e-5 relative), and K6's sums bit for
+    bit those of chip_smoke.fpfh_serial, in K6's own order.  Each wrapper
+    counts its launch."""
     dev = torch.device("cuda")
     pts = _feature_cloud(cuda_rng, n, kind)
     c = cloud.from_numpy(pts, n, device=dev)
@@ -172,6 +186,7 @@ def test_feature_kernels_match_plain(cuda_rng, n, band, q_tile, kind):
     a_k = feature_kernels.fpfh(*k6, q_tile=q_tile, band=band)
     a_p = feature_kernels.fpfh_reference(*k6, q_tile=q_tile, band=band)
     assert bool(((a_k - a_p).abs() <= 2.4e-5 * a_p.abs() + 1e-7).all())
+    assert torch.equal(a_k, chip_smoke.fpfh_serial(*k6, q_tile, band))
     torch.cuda.synchronize()
     for name in ("moments", "spfh", "fpfh"):
         assert feature_kernels.LAUNCHES[name] == before[name] + 1
@@ -195,6 +210,31 @@ def test_spfh_refuses_wrong_dtype(cuda_rng):
     with pytest.raises(ValueError, match="can list"):
         feature_kernels.moments(starts, q32, big, torch.zeros(1, 3, device=dev), 0.1,
                                 q_tile=256, band=1 << 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["moments", "spfh", "fpfh"])
+def test_feature_kernels_refuse_bands_beyond_shared_memory(cuda_rng, kernel):
+    """A band whose slab and lists need more shared memory than a block of
+    the card can have is refused by name, band and bytes before any launch
+    (band 8192: a 256 KB slab against the H100's 227 KB)."""
+    dev = torch.device("cuda")
+    band, q_tile = 8192, 512
+    starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(q_tile, 3, device=dev)
+    r = torch.zeros(2 * band, 3, device=dev)
+    before = dict(feature_kernels.LAUNCHES)
+    args = {"moments": lambda: feature_kernels.moments(
+                starts, q, r, torch.zeros(1, 3, device=dev), 0.1, q_tile=q_tile, band=band),
+            "spfh": lambda: feature_kernels.spfh(starts, q, q, r, r, 0.1, q_tile=q_tile,
+                                                 band=band),
+            "fpfh": lambda: feature_kernels.fpfh(
+                starts, q, r, torch.zeros(q_tile, device=dev),
+                torch.zeros(2 * band, feature_kernels.FEATURE_DIM, device=dev),
+                q_tile=q_tile, band=band)}
+    with pytest.raises(ValueError, match=rf"band {band}: kernel {kernel} needs \d+ bytes"):
+        args[kernel]()
+    assert feature_kernels.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Block geometry, bisection levels a pass and K5's consumer of kernels K4
-and K5 (``pcr_tpu_torch/csrc/fpfh.cu``), measured on one GPU.
+and K5, and the block size of K6 (``pcr_tpu_torch/csrc/fpfh.cu``), measured
+on one GPU.
 
-    python3 tools/tune_features.py
+    python3 tools/tune_features.py [k4k5|k6]       (default: both)
 
 fpfh.cu fixes eight constants: lanes a query (team), warps a block, queries
 a team takes in turn, bisection levels a pass, how many candidate rows (those
@@ -21,6 +22,12 @@ bit-equal), and prints the median time of 20 launches (CUDA events) of each
 kernel at each shape and what ptxas reports (the most registers of any
 kernel in the file, spill bytes).  It also prints how many slab rows the
 queries have within the top bounds, which is what the candidate lists hold.
+
+K6 has one constant of its own, the warps of a block (each a query at a
+time).  K6_VARIANTS are compiled and run the same way on the tensors
+``fgr_features_sorted`` hands K6 (K5's plain tau and SPFH) at both shapes
+and at band 4096, each result held to the plain version with chip_smoke's
+2.4e-5 check and to the first combination's sums bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +57,18 @@ VARIANTS = ([(32, w, q, 2, *LISTED) for w in (8, 16, 32) for q in (1, 2, 4)]
             + [(32, w, 1, 2, *SWEPT) for w in (8, 16)]
             + [(32, 16, 1, 3, *SWEPT), (32, 16, 2, 2, *SWEPT), (16, 16, 1, 2, *SWEPT)]
             + [(32, 16, 1, 2, 0, 0, False, False), (32, 16, 1, 2, 0, 0, True, True)])
+
+K6_NAMES = ("warps",)
+K6_EXPORTS = {"tune_k6": "pcr_fpfh"}
+K6_VARIANTS = [(32,), (16,), (8,)]        # warps a block
+
+K6_TEMPLATE = """#include "fpfh.cu"
+extern "C" int tune_k6(const int* starts, const float* q, const float* r, const float* tau,
+                       const float* spfh, int n_pad, int q_tile, int band, float* out,
+                       cudaStream_t stream) {{
+  return launch_fpfh<{0}>(starts, q, r, tau, spfh, n_pad, q_tile, band, out, stream);
+}}
+"""
 
 TEMPLATE = """#include "fpfh.cu"
 extern "C" int tune_k4(const int* starts, const float* q, const float* r,
@@ -107,6 +126,55 @@ def run_k5(lib, inp, q_tile: int):
     return hist, tau
 
 
+def run_k6(lib, inp, q_tile: int):
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import common
+    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+
+    starts, q, r, tau, spfh = inp.k6_args
+    out = torch.empty((q.shape[0], fk.FEATURE_DIM), dtype=torch.float32, device=q.device)
+    err = lib.tune_k6(starts.data_ptr(), q.data_ptr(), r.data_ptr(), tau.data_ptr(),
+                      spfh.data_ptr(), q.shape[0], q_tile, inp.band, out.data_ptr(),
+                      common.stream_of(q))
+    if err:
+        raise RuntimeError(f"K6 launch failed with error {err}")
+    return out
+
+
+def tune_k6(c, shapes) -> None:
+    """K6_VARIANTS at each shape: checked, timed, printed."""
+    import torch
+
+    import chip_smoke
+
+    libs = build_variants("fpfh.cu", K6_TEMPLATE, K6_VARIANTS, K6_EXPORTS, K6_NAMES)
+    qt = chip_smoke.FEATURE_Q_TILE
+    times = {v: [] for v in libs}
+    for label, bucket, band in shapes:
+        inp = chip_smoke.feature_inputs(c, 0.1, bucket, band)
+        first = None
+        for v, (lib, _) in libs.items():
+            name = f"{label} {tag(v, K6_NAMES)}"
+            out = run_k6(lib, inp, qt)
+            chip_smoke.check_k6_result(name, out, inp.k6_plain)
+            first = out if first is None else first
+            if not torch.equal(out, first):
+                raise AssertionError(f"K6 {name}: sums differ from "
+                                     f"{tag(K6_VARIANTS[0], K6_NAMES)}")
+            times[v].append(chip_smoke.cuda_ms(lambda: run_k6(lib, inp, qt), 20))
+        kept = chip_smoke.slab_work(inp.k6_args[0], inp.k6_args[1], inp.k6_args[2], qt, band,
+                                    1.0, tau=inp.k6_args[3], exclude_self=True)
+        kept -= 9.0 * inp.k6_args[1].shape[0] * 2 * band
+        print(f"{label}: {inp.k6_args[1].shape[0]} rows, band {band}, {kept:.0f} kept pairs; "
+              f"every combination within 2.4e-5 of the plain version and bit-equal to the "
+              f"others")
+    print("combination | K6 ms at " + " / ".join(s[0] for s in shapes) + " | ptxas")
+    for v, rows in sorted(times.items(), key=lambda kv: kv[1][0]):
+        print(f"{tag(v, K6_NAMES)} | " + " / ".join(f"{t:.4f}" for t in rows)
+              + f" | {libs[v][1]}")
+
+
 def listed_rows(inp, q_tile: int) -> str:
     """How many slab rows a query has within K4's and K5's top bounds (what a
     team lists), and how many queries have more than fpfh.cu's lists hold."""
@@ -146,14 +214,22 @@ def main() -> int:
     import chip_smoke
     from pcr_tpu_torch.utils import cloud
 
+    which = sys.argv[1] if len(sys.argv) > 1 else "both"
+    if which not in ("k4k5", "k6", "both"):
+        print(__doc__, file=sys.stderr)
+        return 2
     print(chip_smoke.gpu_line())
-    libs = build_variants("fpfh.cu", TEMPLATE, VARIANTS, EXPORTS, NAMES)
     dev = torch.device("cuda", 0)
     scans, _, _ = chip_smoke.make_circuit()
     c = cloud.from_numpy(scans[0], chip_smoke.CAPACITY, device=dev)
     qt = chip_smoke.FEATURE_Q_TILE
     shapes = [("scan 0", cloud.bucket_capacity(c, 4096), chip_smoke.FEATURE_BAND),
               ("4096 rows", 4096, 1024)]
+    if which != "k4k5":
+        tune_k6(c, shapes + [("scan 0, band 4096", cloud.bucket_capacity(c, 4096), 4096)])
+    if which == "k6":
+        return 0
+    libs = build_variants("fpfh.cu", TEMPLATE, VARIANTS, EXPORTS, NAMES)
     times = {v: [] for v in libs}
     for label, bucket, band in shapes:
         inp = chip_smoke.feature_inputs(c, 0.1, bucket, band)
