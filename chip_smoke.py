@@ -10,8 +10,9 @@ Phases (any failure ends the run with a non-zero exit code):
                K3 survivor moments) and its plain PyTorch version on the same
                tensors at every shape and band the main path gives it (each
                pyramid scale, each GICP and final-metrics band, the gate's
-               32768-row clouds), prints their agreement (K1: d2 bit-equal,
-               every row the first minimum) and both times (CUDA events,
+               32768-row clouds, stage 3's information matrix), prints
+               their agreement (K1: d2 bit-equal, every row the first
+               minimum) and both times (CUDA events,
                median; each timed launch waits behind a short spin on the
                device, so the host's launch work is not counted), and K1's
                times at each shape and K2's and K3's at each scale on a line;
@@ -32,27 +33,43 @@ Phases (any failure ends the run with a non-zero exit code):
                tuple test, 300 GNC iterations) over the circuit, cold and
                warm; every pair within 0.5 m / 5 deg of ground truth, and K1,
                K4, K5 and K6 must each have been launched by the warm run;
-  8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses; every
-               pair within 3 cm / 0.2 deg;
-  9. stage-1 split — features ms/scan; matching, tuple test, GNC and
+  8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses, the
+               retry ladder on; every pair within 3 cm / 0.2 deg;
+  9. stage 3 — pipeline.run_stage3_global, all four methods (LUM, SLERP,
+               SLERP+LUM on the host in float64; the pose-graph LM on the
+               card over K1's band-NN information matrices) on the stage-2
+               poses of phase 8: each trajectory within 5 cm of ground truth
+               (aligned ATE), the card's pose graph within 1e-4 of the same
+               graph solved on the CPU, K1 launched; cold and warm walls and
+               each method's seconds;
+ 10. run_full — pipeline.run_full on the default PipelineConfig (stages 1 -> 3
+               in one window, the main path): its stage-1 and stage-2 poses
+               equal phases 7 and 8's, K1-K6 each launched; its wall beside
+               the staged runners' sum;
+ 11. NCLT stage 3 — the 901-pose circuit of outputs/NCLT_poses.npz: the
+               closed forms held to the file's trajectories (1e-6), the pose
+               graph on the card with identity information matrices, timed
+               (iterations, ms an iteration, the block-Thomas solves' share);
+ 12. stage-1 split — features ms/scan; matching, tuple test, GNC and
                evaluation ms/pair;
- 10. K7 brute   — K7 (brute-force 1-NN) against its plain version at the
+ 13. K7 brute   — K7 (brute-force 1-NN) against its plain version at the
                finest-scale brute GICP pair, the 32768-row gate and an odd
                1000 x 3001 shape: d2 bit-equal, rows equal; kernel, plain
                and library (cdist + min) times;
- 11. brute GICP — registration_gicp(corr_method="brute") warm-started over
+ 14. brute GICP — registration_gicp(corr_method="brute") warm-started over
                the 5 pyramid scales of every pair: within 3 cm / 0.2 deg of
                ground truth and 5 mm / 0.05 deg of the band GICP; the exact
                gate evaluation beside the band one; K7 must have been
                launched;
- 12. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
+ 15. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
                every pair within 0.5 m / 5 deg;
- 13. retry ladder — stage 2 with retry_failed=True (the reference default),
+ 16. retry ladder — stage 2 with retry_failed=True (the reference default),
                pair RETRY_PAIR thrown RETRY_OFFSET_M off: its status must
                start with "retried" and it must land within 3 cm / 0.2 deg;
                the other pairs as in phase 4.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
+The line before the last is the kernels' JSON record (``launches``: K1-K6
+from the run_full run, K7 from the brute GICP, the only path that runs it);
+the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
 and one compare (9 operations) per (query, candidate) pair and the per-pair
@@ -501,8 +518,9 @@ def record(name: str, source: str, replaces: str, results: list, timed: tuple) -
 def phase_kernels(dev, clouds, gt) -> list[dict]:
     """Each kernel against its plain version at every shape and band the
     main path gives it on the first pair (scan 1 into scan 0): K2/K3 at each
-    pyramid scale, K1 at each scale's GICP band and final-metrics band and
-    at the gate evaluation.  A kernel's time in the JSON record is that of
+    pyramid scale, K1 at each scale's GICP band and final-metrics band, at
+    the gate evaluation and at stage 3's information matrix (scan 0 into
+    scan 1).  A kernel's time in the JSON record is that of
     its finest-scale (largest) GICP or pyramid call."""
     import torch
 
@@ -541,6 +559,11 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
             k1_labels.append(f"final metrics {v:.1f} m (band {band_f})")
     k1.append(check_k1("gate", src, tgt, T, 2 * cfg.voxel_size, 2048))
     k1_labels.append("gate (band 2048)")
+    # stage 3's information matrix of edge 0: scan 0 into scan 1 at the
+    # inverted edge pose, within one voxel
+    k1.append(check_k1("information matrix", tgt, src, torch.linalg.inv(T), cfg.voxel_size,
+                       2048))
+    k1_labels.append("stage-3 information matrix (band 2048)")
     print("K1 ms by shape: " + "; ".join(f"{name} {r[1]:.4f} (bound {r[3]:.4f})"
                                          for name, r in zip(k1_labels, k1)))
 
@@ -595,7 +618,7 @@ def check_pose_files(rel_dir: Path, out: np.ndarray) -> None:
 def timed_runs(label: str, runs, fn):
     """Run ``fn(run)`` for each run name with the launch counts set to 0
     just before; prints wall, pairs/s and launches; returns the last run's
-    (result, launches)."""
+    (result, launches, wall seconds)."""
     import torch
 
     for run in runs:
@@ -608,13 +631,13 @@ def timed_runs(label: str, runs, fn):
         launches = read_launches()
         print(f"{label} {run} run: {wall:.3f} s, {N_SCANS / wall:.3f} pairs/s, "
               f"launches {launches}")
-    return out, launches
+    return out, launches, wall
 
 
 def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
     """Stage 2 over the circuit from ``init``; every pair within 3 cm /
     0.2 deg, and K1-K3 launched by the last run.  Returns its (poses,
-    metrics, launches)."""
+    metrics, launches, wall seconds)."""
     from pcr_tpu_torch import pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -626,7 +649,7 @@ def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
                                             n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
-        (cfg, metrics, out), launches = timed_runs(label, runs, one)
+        (cfg, metrics, out), launches, wall = timed_runs(label, runs, one)
         check_pose_files(Path(cfg.out_dir("relative_poses_FGR_GICP")), out)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
@@ -642,13 +665,13 @@ def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
     print(f"{label}: worst pair error {worst[0] * 100:.3f} cm, {worst[1]:.4f} deg "
           f"(limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg)")
     check_launched(launches, STAGE2_KERNELS, label)
-    return out, metrics, launches
+    return out, metrics, launches, wall
 
 
 def phase_slice(clouds, gt, init):
     """Stage 2 over the circuit twice from the real NCLT FGR errors; returns
     the warm run's (poses, launch counts)."""
-    out, _, launches = run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
+    out, _, launches, _ = run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
     return out, launches
 
 
@@ -859,7 +882,7 @@ def stage1_config(output_root: str):
 
 def phase_stage1(clouds, gt):
     """Stage 1 over the circuit, cold and warm; every pair within 0.5 m /
-    5 deg.  Returns (poses, the warm run's launch counts)."""
+    5 deg.  Returns (poses, the warm run's launch counts and wall seconds)."""
     from pcr_tpu_torch import pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -869,7 +892,7 @@ def phase_stage1(clouds, gt):
             out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
-        (cfg, metrics, out), launches = timed_runs("stage 1", ("cold", "warm"), one)
+        (cfg, metrics, out), launches, wall = timed_runs("stage 1", ("cold", "warm"), one)
         check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
@@ -882,7 +905,7 @@ def phase_stage1(clouds, gt):
     print(f"stage 1: worst pair error {worst[0] * 100:.2f} cm, {worst[1]:.3f} deg "
           f"(limits {MAX_FGR_T_ERR_M * 100:g} cm, {MAX_FGR_R_ERR_DEG} deg)")
     check_launched(launches, STAGE1_KERNELS, "stage 1")
-    return out, launches
+    return out, launches, wall
 
 
 def phase_stage1_split(clouds) -> None:
@@ -1053,7 +1076,7 @@ def phase_stage1_selection(clouds, gt) -> None:
             out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
-        (cfg, metrics, out), _ = timed_runs("stage 1 (selection)", ("one",), one)
+        (cfg, metrics, out), _, _ = timed_runs("stage 1 (selection)", ("one",), one)
         check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
@@ -1072,8 +1095,8 @@ def phase_retry(clouds, gt, init, base: np.ndarray) -> None:
     RETRY_OFFSET_M off: that pair must be retried and land within 3 cm /
     0.2 deg; the other pairs must be the poses of the unthrown run."""
     seeded = thrown_off(init, RETRY_PAIR, RETRY_OFFSET_M)
-    out, metrics, _ = run_stage2(clouds, gt, seeded, "retry ladder", ("one",),
-                                 retry_failed=True)
+    out, metrics, _, _ = run_stage2(clouds, gt, seeded, "retry ladder", ("one",),
+                                    retry_failed=True)
     status = metrics.rows[RETRY_PAIR]["status"]
     if not status.startswith("retried"):
         raise AssertionError(f"pair {RETRY_PAIR} was not rescued by the ladder: {status}")
@@ -1083,6 +1106,170 @@ def phase_retry(clouds, gt, init, base: np.ndarray) -> None:
         raise AssertionError(f"the ladder moved the other pairs by {moved}")
     print(f"retry ladder: pair {RETRY_PAIR} thrown {RETRY_OFFSET_M:g} m off -> {status}; "
           f"other pairs within {moved:.3e} of the unthrown run")
+
+
+STAGE3_METHODS = ("LUM", "SLERP", "SLERP_LUM", "pose_graph")
+MAX_STAGE3_ATE_M = 0.05       # aligned ATE of each stage-3 trajectory against ground truth
+MAX_PG_CARD_CPU = 1e-4        # the card's 8-node pose graph against the same graph on the CPU
+MAX_CLOSED_FORM_FILE = 1e-6   # closed forms against outputs/NCLT_poses.npz
+MAIN_KERNELS = STAGE2_KERNELS + ("moments", "spfh", "fpfh")
+
+
+def synced(fn):
+    """(fn(), seconds) with the card drained before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_stage3(clouds, gt, rel2) -> dict:
+    """Stage 3 (all four methods) on the circuit's stage-2 poses, the
+    information matrices by K1 on the card: each trajectory within
+    MAX_STAGE3_ATE_M of ground truth (aligned ATE, each against the ground
+    truth chained in its own convention), the pose graph's closure below the
+    standard chain's, and the card's pose graph against the same graph
+    solved on the CPU.  Runs cold and warm; prints each method's seconds.
+    Returns the warm run's launch counts and wall seconds."""
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models import evaluate
+    from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.utils import se3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def one(run):
+            cfg = stage2_config(str(Path(tmp) / run))
+            results = pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds,
+                                                 n=N_SCANS, methods=STAGE3_METHODS)
+            with open(Path(cfg.out_dir("metrics")) / "stage3_consistency.json") as fh:
+                return cfg, results, json.load(fh)
+
+        (cfg, results, record), launches, wall = timed_runs("stage 3", ("cold", "warm"), one)
+    check_launched(launches, ("nn1_band",), "stage 3")
+    print(f"stage 3: the four methods over {N_SCANS} scans; pose graph "
+          f"{record['pose_graph']['optimizer']}")
+    split = {name: synced(lambda f=f: f(rel2))[1] for name, f in (
+        ("LUM", closed_form.refine_lum), ("SLERP", closed_form.refine_slerp),
+        ("SLERP_LUM", closed_form.refine_slerp_lum))}
+    infos, split["information matrices"] = synced(
+        lambda: pipeline.information_matrices(cfg, clouds, rel2))
+    graph = pose_graph.build_circuit_graph(se3.relative_to_absolute_standard(rel2), rel2,
+                                           infos, device=infos.device)
+    out, split["pose-graph LM"] = synced(lambda: pose_graph.global_optimization(
+        graph, max_correspondence_distance=2 * cfg.voxel_size))
+    print("stage-3 split: " + "; ".join(f"{k} {v * 1e3:.1f} ms" for k, v in split.items()))
+    cpu = pose_graph.global_optimization(
+        pose_graph.PoseGraph(*(x.cpu() for x in graph)),
+        max_correspondence_distance=2 * cfg.voxel_size)
+    d_cpu = float((out.nodes.cpu() - cpu.nodes).abs().max())
+    if not d_cpu < MAX_PG_CARD_CPU:
+        raise AssertionError(f"stage-3 pose graph on the card is {d_cpu} off the CPU's")
+    truth = {"reference": se3.relative_to_absolute(gt),
+             "standard": se3.relative_to_absolute_standard(gt)}
+    for name, poses in results.items():
+        conv = record[name]["convention"]
+        ate = evaluate.aligned_ate(poses, truth[conv])
+        print(f"stage 3 {name} ({conv}): aligned ATE rmse {ate['rmse_m'] * 100:.3f} cm, max "
+              f"{ate['max_m'] * 100:.3f} cm; closure edge {record[name]['dt_closure_edge_m'] * 1e3:.3f}"
+              f" mm, dR max {record[name]['dR_max']:.6f}")
+        if not (np.isfinite(poses).all() and poses.shape == (N_SCANS, 4, 4)
+                and ate["max_m"] < MAX_STAGE3_ATE_M):
+            raise AssertionError(f"stage 3 {name} off ground truth: {ate}")
+    if not (record["pose_graph"]["dt_closure_edge_m"]
+            < record["raw_chain_standard"]["dt_closure_edge_m"]):
+        raise AssertionError("the pose graph did not distribute the circuit's closure")
+    print(f"stage 3: pose graph on the card within {d_cpu:.2e} of the CPU's (limit "
+          f"{MAX_PG_CARD_CPU:g})")
+    return launches, wall
+
+
+def phase_stage3_nclt(dev) -> None:
+    """Stage 3 on the 901-pose NCLT circuit of outputs/NCLT_poses.npz: the
+    closed forms on the host, held to the file's trajectories; the pose
+    graph on the card with identity information matrices, timed, with its
+    iterations, ms an iteration and the share of one block-Thomas solve
+    pair (timed alone at the same shape)."""
+    import torch
+
+    from pcr_tpu_torch.models import evaluate
+    from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.utils import se3
+
+    z = np.load(ROOT / "outputs" / "NCLT_poses.npz")
+    rel = z["relative_FGR_GICP"]
+    n = len(rel)
+    for name, key in (("refine_lum", "absolute_LUM"), ("refine_slerp", "absolute_SLERP"),
+                      ("refine_slerp_lum", "absolute_SLERP_LUM")):
+        t0 = time.perf_counter()
+        poses = getattr(closed_form, name)(rel)
+        sec = time.perf_counter() - t0
+        err = float(np.abs(poses - z[key]).max())
+        print(f"NCLT {name}: {sec * 1e3:.1f} ms on the host, {err:.2e} from {key}")
+        if not err < MAX_CLOSED_FORM_FILE:
+            raise AssertionError(f"NCLT {name} is {err} off the file's {key}")
+    graph = pose_graph.build_circuit_graph(se3.relative_to_absolute_standard(rel), rel,
+                                           np.tile(np.eye(6, dtype=np.float32), (n, 1, 1)),
+                                           device=dev)
+    (out, info), wall = synced(lambda: pose_graph.global_optimization(
+        graph, max_correspondence_distance=0.2, return_info=True))
+    its = info["pass1_iterations"] + info["pass2_iterations"]
+    l = torch.ones(n, device=dev)
+    diag, off, b = pose_graph._build_tridiag(graph, graph.nodes, l)
+    D, U, rhs = diag[1:], off[1 : n - 1], b[1:]
+    thomas = statistics.median(
+        synced(lambda: pose_graph._block_thomas_solve(D, U, rhs))[1] for _ in range(5))
+    blocks = statistics.median(
+        synced(lambda: pose_graph._build_tridiag(graph, graph.nodes, l))[1] for _ in range(5))
+    ms_it = wall / its * 1e3
+    print(f"NCLT pose graph (n={n}, identity information, card): {wall:.3f} s, iterations "
+          f"{info['pass1_iterations']} + {info['pass2_iterations']}, {ms_it:.1f} ms/iteration; "
+          f"one block-Thomas solve {thomas * 1e3:.1f} ms (two an iteration: "
+          f"{2 * thomas * 1e3 / ms_it:.0%} of it), Hessian blocks {blocks * 1e3:.1f} ms; {info}")
+    c = evaluate.circuit_edge_consistency(out.nodes.double().cpu().numpy(), rel,
+                                          convention="standard")
+    raw = evaluate.circuit_edge_consistency(se3.relative_to_absolute_standard(rel), rel,
+                                            convention="standard")
+    print(f"NCLT pose graph: closure edge {raw['dt_closure_edge_m']:.3f} -> "
+          f"{c['dt_closure_edge_m']:.4f} m, dt max {c['dt_max_m']:.4f} m, dR max "
+          f"{c['dR_max']:.5f}")
+    if not (torch.isfinite(out.nodes).all() and info["pruned_edges"] == 0
+            and c["dt_closure_edge_m"] < raw["dt_closure_edge_m"] / 10):
+        raise AssertionError(f"NCLT pose graph did not close the circuit: {info}, {c}")
+
+
+def phase_full(clouds, rel1, rel2, staged_s: float) -> dict:
+    """pipeline.run_full (stages 1 -> 3 in one window, the main path) on the
+    default PipelineConfig (batch_size 2, retry ladder on): its stage-1 and
+    stage-2 poses equal the staged runners', its stage-3 poses are finite,
+    and K1-K6 are each launched.  Prints its wall beside the staged runners'
+    sum.  Returns the launch counts of the run."""
+    from pcr_tpu_torch import pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = pipeline.PipelineConfig(dataset="NCLT", output_root=tmp)
+        metrics = pipeline.PairMetrics()
+        reset_launches()
+        out, wall = synced(lambda: pipeline.run_full(cfg, clouds=clouds, n=N_SCANS,
+                                                     metrics=metrics, methods=STAGE3_METHODS))
+        launches = read_launches()
+        check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out["stage1"])
+        check_pose_files(Path(cfg.out_dir("relative_poses_FGR_GICP")), out["stage2"])
+    d1 = float(np.abs(out["stage1"] - rel1).max())
+    d2 = float(np.abs(out["stage2"] - rel2).max())
+    gates = [r["gate_fitness"] for r in metrics.rows if r["stage"] == "mgicp"]
+    print(f"run_full: {wall:.3f} s for {N_SCANS} pairs, stages 1 -> 3 (staged runners' sum "
+          f"{staged_s:.3f} s); stage 1 within {d1:.2e} and stage 2 within {d2:.2e} of the "
+          f"staged runners; gate fitness {[round(g, 4) for g in gates]}; launches {launches}")
+    if not (d1 < 1e-5 and d2 < 1e-5 and len(gates) == N_SCANS):
+        raise AssertionError(f"run_full differs from the staged runners: {d1}, {d2}")
+    for name, poses in out["stage3"].items():
+        if not (np.isfinite(poses).all() and poses.shape == (N_SCANS, 4, 4)):
+            raise AssertionError(f"run_full stage 3 {name} is not finite")
+    check_launched(launches, MAIN_KERNELS, "run_full")
+    return launches
 
 
 def main() -> int:
@@ -1112,17 +1299,23 @@ def main() -> int:
     base, launches2 = phase_slice(clouds, gt, init)
     phase_split(clouds, init)
     records += phase_feature_kernels(clouds)
-    rel1, launches1 = phase_stage1(clouds, gt)
-    run_stage2(clouds, gt, rel1, "stage 1 -> 2", ("seeded by stage 1",))
+    rel1, launches1, wall1 = phase_stage1(clouds, gt)
+    # the retry ladder on, as run_full's default configuration has it
+    rel12, _, _, wall12 = run_stage2(clouds, gt, rel1, "stage 1 -> 2", ("seeded by stage 1",),
+                                     retry_failed=True)
+    launches3, wall3 = phase_stage3(clouds, gt, rel12)
+    launches_main = phase_full(clouds, rel1, rel12, wall1 + wall12 + wall3)
+    phase_stage3_nclt(dev)
     phase_stage1_split(clouds)
     records.append(phase_k7(dev, clouds, gt))
     launches7 = phase_brute(clouds, gt, init)
     phase_stage1_selection(clouds, gt)
     phase_retry(clouds, gt, init, base)
+    print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
+          f"brute GICP {launches7}; run_full (the main path) {launches_main}")
     for rec in records:
-        rec["launches"] = (launches2 if rec["name"] in STAGE2_KERNELS
-                           else launches7 if rec["name"] in BRUTE_KERNELS
-                           else launches1)[rec["name"]]
+        rec["launches"] = (launches7 if rec["name"] in BRUTE_KERNELS
+                           else launches_main)[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

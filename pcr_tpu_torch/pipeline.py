@@ -1,15 +1,22 @@
-"""Stage-1 and stage-2 runners (port of pcr_tpu/pipeline.py, the streamed
-single-pair branches of ``run_stage1_fgr`` and ``run_stage2_mgicp``).
+"""The circuit runners (port of pcr_tpu/pipeline.py): stage 1, stage 2
+(their streamed single-pair branches), stage 3 and ``run_full``, stages 1 to 3
+in one window, the main path.
 
 Stage contract, kept from the reference: every stage persists poses as
 ``pose_{i+1}_{i}.txt`` / ``pose{i}.txt`` text files and the next stage reloads
 them, so the pipeline is restartable at stage granularity.
 
-Stage 1 runs on the banded features (``ops/fpfh_sorted``, the default) or
-the selection features (``models/fgr.fgr_features``); stage 2 re-registers a
-pair that fails its fitness gate with the FGR retry ladder (``_retry_pair``).
-Not ported yet: the batched (``batch_size > 1``) and mesh branches, stage 3
-and the CLI.  Each raises ``NotImplementedError`` where a run would need it.
+  stage 1  FGR over all circuit pairs (banded features, ``ops/fpfh_sorted``,
+           the default, or the selection features, ``models/fgr``)
+  stage 2  M-GICP refinement of the stage-1 poses; a pair that fails its
+           fitness gate is re-registered by the FGR retry ladder
+  stage 3  global refinement: LUM / SLERP / SLERP+LUM (host float64) and the
+           pose-graph LM over band-NN information matrices (on the card)
+
+Not ported yet: the batched (``batch_size > 1``) and mesh branches of the
+staged runners, dataset loading and the CLI.  Each raises
+``NotImplementedError`` where a run would need it; ``run_full`` reads no
+``batch_size`` and so runs on the default configuration.
 """
 
 from __future__ import annotations
@@ -20,10 +27,13 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .models import evaluate as eval_mod
 from .models import fgr as fgr_mod
 from .models import multiscale as ms_mod
+from .models.global_refine import closed_form
+from .models.global_refine import pose_graph as pg_mod
 from .ops import fpfh_sorted
 from .utils import cloud as cloud_mod
 from .utils import poses_io, se3
@@ -103,6 +113,16 @@ class PairMetrics:
         if not rows:
             return 0.0
         return sum(1 for r in rows if r[key] > gate) / len(rows)
+
+
+# Pairs stacked into one batched evaluation call (pcr_tpu's max(batch_size, 4)
+# at its default batch_size): on one card the pairs of a call run one after
+# another, so the chunk bounds the stacked copies, not the results.
+PAIR_CHUNK = 4
+
+
+def _chunks(n: int, size: int = PAIR_CHUNK) -> list[list[int]]:
+    return [list(range(s, min(s + size, n))) for s in range(0, n, size)]
 
 
 def _pad_feat(feat, capacity: int):
@@ -235,7 +255,7 @@ def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
     at m*voxel (``registro_fgr``, selection features), then M-GICP over the
     cached pyramids; candidates are compared by full-cloud fitness at
     2*voxel (finest-scale fitness is not comparable across seeds at low
-    overlap).  Returns (best result, status)."""
+    overlap).  Returns (best result, status, its gate score)."""
     eval_dist = 2 * cfg.voxel_size
 
     def score(T):
@@ -254,7 +274,7 @@ def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
             best_res, best_score, status = cand, sc, f"retried_voxel_x{m:g}"
     if float(best_res.fitness) <= cfg.retry_fitness:
         status += ",low_fitness"
-    return best_res, status
+    return best_res, status, best_score
 
 
 def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
@@ -262,10 +282,11 @@ def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
     """Full-cloud fitness at 2*voxel for every refined pair (band-NN
     evaluation); each pair's metrics row gains a ``gate_fitness``."""
     eval_dist = 2 * cfg.voxel_size
-    fit, _, _ = eval_mod.evaluate_registration_batch(
-        [clouds[s] for s, _ in pairs], [clouds[t] for _, t in pairs], eval_dist,
-        [np.asarray(poses[k], np.float32) for k in range(len(pairs))])
-    gate = fit.double().cpu().numpy()
+    gate = np.concatenate([eval_mod.evaluate_registration_batch(
+        cloud_mod.stack_clouds([clouds[pairs[k][0]] for k in idx]),
+        cloud_mod.stack_clouds([clouds[pairs[k][1]] for k in idx]), eval_dist,
+        np.asarray(poses[idx], np.float32))[0].double().cpu().numpy()
+        for idx in _chunks(len(pairs))])
     row_for = {(r["src"], r["tgt"]): i for i, r in enumerate(metrics.rows)
                if r["stage"] == "mgicp"}
     for k, (s, t) in enumerate(pairs):
@@ -352,8 +373,8 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
         drain_one()
     for k, s, t, res0 in retries:  # second pass: the retry ladder per failure
         t0 = time.time()
-        res, status = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s), pyramid(t),
-                                  seed_base=s)
+        res, status, _ = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
+                                     pyramid(t), seed_base=s)
         out[k] = res.transformation.double().cpu().numpy()
         metrics.rows[row_of[k]] = dict(
             stage="mgicp", src=int(s), tgt=int(t), fitness=float(res.fitness),
@@ -369,3 +390,239 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
     return out
 
+
+
+def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
+             metrics: PairMetrics | None = None,
+             methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph")) -> dict:
+    """Stages 1 -> 3, with stage 2 streamed behind stage 1 in one window:
+    the main path.
+
+    Per pair: FGR on the two scans' cached banded (or selection) features,
+    then M-GICP over their cached pyramids seeded from the FGR pose as it
+    lies on the card (no host read between), then the gate evaluation at
+    2*voxel on the padded feature clouds.  Results are read ``cfg.inflight``
+    pairs behind, so each read overlaps the next pairs' work.  The stage
+    contract is the staged runners': both stages' pose files, partial
+    checkpoints every 50 pairs, per-stage metrics jsonl, ``gate_fitness`` on
+    every stage-2 row.  Then the retry ladder over the failed pairs, the
+    stage-1 outlier flags and stage 3.  ``batch_size`` is not read (as in
+    the JAX package), so the default configuration runs.  ``clouds`` is a
+    list of port Clouds on one device, where the run happens; loading the
+    dataset is not ported.  Returns {"stage1", "stage2", "stage3"}."""
+    if cfg.stage1_features not in ("banded", "selection"):
+        raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
+    if clouds is None:
+        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
+    n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    metrics = metrics if metrics is not None else PairMetrics()
+    pairs = circuit_pairs(n)
+    caps = cfg.scale_capacities
+    if caps == "auto":
+        caps = cloud_mod.plan_scale_caps(clouds, ms_mod.create_scales(cfg.mgicp_scales))
+    eval_dist = 2 * cfg.voxel_size
+    # every bucket up front: each read waits for the device
+    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    feat_cache: dict[int, tuple] = {}
+    pyr_cache: dict[int, tuple] = {}
+
+    def prep(i):
+        if i not in feat_cache:
+            feat_cache[i] = _prep_features(clouds[i], buckets[i], cfg.voxel_size,
+                                           cfg.stage1_band, cfg.stage1_features)
+        return feat_cache[i], pyramid(i)
+
+    def pyramid(i):
+        if i not in pyr_cache:
+            pyr_cache[i] = ms_mod.build_pyramid(clouds[i], n_scales=cfg.mgicp_scales,
+                                                scale_capacities=caps)
+        return pyr_cache[i]
+
+    def evict(s):
+        # keep only what the next pair (s+1, s) still needs
+        for cache in (feat_cache, pyr_cache):
+            for key in [key for key in cache if key not in (s, (s + 1) % n)]:
+                del cache[key]
+
+    out1, out2 = np.zeros((n, 4, 4)), np.zeros((n, 4, 4))
+    ckpt1 = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
+    ckpt2 = os.path.join(cfg.out_dir("metrics"), "stage2_partial.npy")
+    inflight: list[tuple] = []
+    retries: list[tuple] = []
+    row_of: dict[int, int] = {}
+    drained = 0
+    last_drain = time.time()
+
+    def save_metrics():
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
+
+    def drain_one():
+        nonlocal drained, last_drain
+        k, s, t, res1, res2, gate = inflight.pop(0)
+        out1[k] = res1.transformation.double().cpu().numpy()
+        now = time.time()   # wall-true deltas between reads; the fgr / mgicp split
+        metrics.add("fgr", s, t, float(res1.fitness), float(res1.inlier_rmse),
+                    now - last_drain)                # is by read order
+        last_drain = now
+        out2[k] = res2.transformation.double().cpu().numpy()
+        fit = float(res2.fitness)
+        row_of[k] = len(metrics.rows)
+        now = time.time()
+        metrics.add("mgicp", s, t, fit, float(res2.inlier_rmse), now - last_drain,
+                    status="ok", scale_iterations=res2.scale_iterations.tolist(),
+                    gate_fitness=float(gate))
+        last_drain = now
+        if cfg.retry_failed and fit <= cfg.retry_fitness:
+            retries.append((k, s, t, res2))
+        drained = k + 1
+        if drained % 50 == 0:  # crash-resumable partial checkpoints
+            os.makedirs(os.path.dirname(ckpt1), exist_ok=True)
+            np.save(ckpt1, out1[:drained])
+            np.save(ckpt2, out2[:drained])
+            save_metrics()
+
+    for k, (s, t) in enumerate(pairs):
+        (src_f, feat_src), pyr_s = prep(s)
+        (tgt_f, feat_tgt), pyr_t = prep(t)
+        B = max(src_f.capacity, tgt_f.capacity)
+        opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)
+        src_p, fs, tgt_p, ft = _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B)
+        res1 = fgr_mod.registration_fgr(src_p, tgt_p, fs, ft, opts, seed=cfg.fgr_seed + s)
+        res2 = ms_mod.multiscale_gicp_pyramids(pyr_s, pyr_t, res1.transformation,
+                                               n_scales=cfg.mgicp_scales,
+                                               iterations=cfg.mgicp_iterations)
+        # the gate on the padded feature clouds: the same valid points as the
+        # full clouds (compact drops only masked rows), at the pair bucket
+        gate, _, _ = eval_mod.evaluate_registration(src_p, tgt_p, eval_dist,
+                                                    res2.transformation)
+        inflight.append((k, s, t, res1, res2, gate))
+        evict(s)
+        while len(inflight) >= max(cfg.inflight, 1):
+            drain_one()
+    while inflight:
+        drain_one()
+    for k, s, t, res0 in retries:  # second pass: the retry ladder per failure
+        t0 = time.time()
+        res, status, gate_sc = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
+                                           pyramid(t), seed_base=s)
+        out2[k] = res.transformation.double().cpu().numpy()
+        metrics.rows[row_of[k]] = dict(
+            stage="mgicp", src=int(s), tgt=int(t), fitness=float(res.fitness),
+            rmse=float(res.inlier_rmse),
+            seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
+            status=status, scale_iterations=res.scale_iterations.tolist(),
+            gate_fitness=float(gate_sc))
+        evict(s)
+    _flag_stage1_outliers(out1, metrics)
+    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out1)
+    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out2)
+    poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
+                                 se3.relative_to_absolute(out2))
+    save_metrics()
+    stage3 = run_stage3_global(cfg, relative_poses=out2, clouds=clouds, n=n, methods=methods)
+    return {"stage1": out1, "stage2": out2, "stage3": stage3}
+
+
+def information_matrices(cfg: PipelineConfig, clouds, relative_poses) -> torch.Tensor:
+    """(n, 6, 6) information matrix of every circuit edge, on the clouds'
+    device: for edge k, pair (s, t) = circuit_pairs(n)[k], the band-NN
+    (kernel K1, band 2048) matrix of clouds[t] -> clouds[s] at the INVERTED
+    relative pose inv(rel_k), the transform of frame t into frame s, within
+    voxel_size (the reference's stage 3)."""
+    n = len(relative_poses)
+    pairs = circuit_pairs(n)
+    T_edges = se3.invert(np.asarray(relative_poses)).astype(np.float32)
+    return torch.cat([eval_mod.information_matrix_batch(
+        cloud_mod.stack_clouds([clouds[pairs[k][1]] for k in idx]),
+        cloud_mod.stack_clouds([clouds[pairs[k][0]] for k in idx]),
+        cfg.voxel_size, T_edges[idx]) for idx in _chunks(n)])
+
+
+def run_stage3_global(cfg: PipelineConfig, relative_poses: np.ndarray | None = None,
+                      clouds=None, n: int | None = None,
+                      methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph")) -> dict:
+    """Global refinement: each method on the same relative poses, its
+    absolute poses written to ``absolute_poses_{method}`` and every
+    trajectory scored against the measured edges in
+    ``metrics/stage3_consistency.json``.  Returns {method: (n, 4, 4)}.
+
+    The closed forms run on the host in float64.  The pose graph runs on the
+    clouds' device: information matrices by ``information_matrices``, nodes
+    started from the STANDARD chain of the relatives (the optimiser is
+    standard SE(3), so every odometry edge starts at zero residual), loop
+    edge pruned below a line-process weight of 0.25."""
+    n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if relative_poses is None:
+        relative_poses = poses_io.load_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"),
+                                                        n)
+    relative_poses = np.asarray(relative_poses, np.float64)
+    results = {}
+    if "LUM" in methods:
+        results["LUM"] = closed_form.refine_lum(relative_poses)
+    if "SLERP" in methods:
+        results["SLERP"] = closed_form.refine_slerp(relative_poses)
+    if "SLERP_LUM" in methods:
+        results["SLERP_LUM"] = closed_form.refine_slerp_lum(relative_poses)
+    if "pose_graph" in methods:
+        if clouds is None:
+            raise NotImplementedError("loading the reference scans is not ported; pass clouds")
+        infos = information_matrices(cfg, clouds, relative_poses)
+        graph = pg_mod.build_circuit_graph(se3.relative_to_absolute_standard(relative_poses),
+                                           relative_poses, infos, device=infos.device)
+        out, pg_info = pg_mod.global_optimization(
+            graph, max_correspondence_distance=2 * cfg.voxel_size, edge_prune_threshold=0.25,
+            return_info=True)
+        results["pose_graph"] = out.nodes.double().cpu().numpy()
+        pruned_edges = int((~out.edge_mask).sum())
+    for name, poses in results.items():
+        poses_io.save_absolute_poses(cfg.out_dir(f"absolute_poses_{name}"), poses)
+    # each trajectory scored in its native convention: the closed forms and
+    # the reference chain in the reference recovery, the pose graph and the
+    # standard chain in standard SE(3)
+    diag = {
+        "raw_chain": _consistency_summary(se3.relative_to_absolute(relative_poses),
+                                          relative_poses),
+        "raw_chain_standard": _consistency_summary(
+            se3.relative_to_absolute_standard(relative_poses), relative_poses,
+            convention="standard"),
+    }
+    for name, poses in results.items():
+        conv = "standard" if name == "pose_graph" else "reference"
+        diag[name] = _consistency_summary(poses, relative_poses, convention=conv)
+        diag[name]["convention"] = conv
+    if "pose_graph" in results:
+        diag["pose_graph"]["pruned_edges"] = pruned_edges
+        diag["pose_graph"]["optimizer"] = pg_info
+    path = os.path.join(cfg.out_dir("metrics"), "stage3_consistency.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(diag, fh, indent=2)
+    return results
+
+
+def _consistency_summary(absolute_poses, relative_poses, convention: str = "reference") -> dict:
+    c = eval_mod.circuit_edge_consistency(absolute_poses, relative_poses, convention=convention)
+    return {k: v for k, v in c.items() if isinstance(v, float)}
+
+
+def evaluate_circuit(clouds, relative_poses, max_dist: float, batch: int = PAIR_CHUNK):
+    """Per-pair fitness and RMSE of a circuit's relative poses (the
+    reference's ``calculate_RMSE_and_fitness``): evaluate_registration(
+    clouds[i+1] -> clouds[i], max_dist, rel[i]) for every pair, the
+    wraparound included, by band-NN, ``batch`` pairs a stacked call.
+    Returns (fitness (n,), rmse (n,))."""
+    n = len(relative_poses)
+    pairs = circuit_pairs(n)
+    rel = np.asarray(relative_poses, np.float32)
+    cols = [eval_mod.evaluate_registration_batch(
+        cloud_mod.stack_clouds([clouds[pairs[k][0]] for k in idx]),
+        cloud_mod.stack_clouds([clouds[pairs[k][1]] for k in idx]), max_dist, rel[idx])[:2]
+        for idx in _chunks(n, batch)]
+    fit, rmse = (torch.cat(c).double().cpu().numpy() for c in zip(*cols))
+    return fit, rmse
+
+
+def evaluate_against(poses: np.ndarray, reference: np.ndarray):
+    """Per-pose (rotation, translation) errors by the reference's metric."""
+    return se3.pose_errors(np.asarray(poses), np.asarray(reference))

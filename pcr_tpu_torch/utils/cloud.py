@@ -3,6 +3,8 @@
 A ``Cloud`` is a padded (N, 3) float32 point tensor with an (N,) bool validity
 mask.  Padded points are parked at the far-away ``PAD_COORD`` sentinel so
 distance kernels never select them, and every kernel still consults the mask.
+``stack_clouds`` makes a batched Cloud with a leading dimension B ((B, N, 3)
+points, (B, N) mask), which ``cloud[b]`` indexes.
 """
 
 from __future__ import annotations
@@ -44,6 +46,14 @@ class Cloud:
     def count(self) -> torch.Tensor:
         """Number of valid points (0-dim tensor on the cloud's device)."""
         return torch.sum(self.mask.to(torch.int32), dim=-1)
+
+    def __getitem__(self, b: int) -> "Cloud":
+        """Cloud b of a batched Cloud (leading dimension B)."""
+        def take(x):
+            return None if x is None else x[b]
+
+        return Cloud(points=self.points[b], mask=self.mask[b], normals=take(self.normals),
+                     covariances=take(self.covariances))
 
 
 def _placement(device: torch.device | str | None) -> torch.device:
@@ -165,3 +175,15 @@ def plan_scale_caps(clouds: list[Cloud], scales: list[float],
             worst = max(worst, int(np.unique(key).size))
         caps.append(min(-(-(worst + margin) // bucket) * bucket, full_cap))
     return tuple(caps)
+
+
+def stack_clouds(clouds: list[Cloud]) -> Cloud:
+    """Stack same-capacity clouds into a batched Cloud with leading dim B;
+    an attribute is kept only when every cloud has it."""
+    def stack(xs):
+        return None if any(x is None for x in xs) else torch.stack(xs)
+
+    return Cloud(points=torch.stack([c.points for c in clouds]),
+                 mask=torch.stack([c.mask for c in clouds]),
+                 normals=stack([c.normals for c in clouds]),
+                 covariances=stack([c.covariances for c in clouds]))

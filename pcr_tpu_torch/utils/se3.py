@@ -7,14 +7,17 @@ Same conventions as the JAX package:
   * ``relative_to_absolute`` chains rotations in reversed order, prepends the
     identity and drops the final loop-closure pose.
 
-Host numpy inputs run in float64 (pose chains of ~900 links need it); torch
-inputs stay on their device in their own dtype.
+Host numpy inputs run in float64 (pose chains of ~900 links need it; the
+chains run sequentially there, as in the JAX package); torch inputs stay on
+their device in their own dtype, and their chains run as doubling scans.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import quaternion
 
 
 def _host(*arrays) -> bool:
@@ -27,17 +30,20 @@ def _host(*arrays) -> bool:
 # ---------------------------------------------------------------------------
 
 def make_pose(R, t):
-    """Assemble (..., 4, 4) homogeneous poses from (..., 3, 3) R and (..., 3) t."""
+    """Assemble (..., 4, 4) homogeneous poses from (..., 3, 3) R and (..., 3) t.
+    The tensor path is built without in-place writes, so that it runs under
+    ``torch.func`` transforms (the pose graph's Jacobians)."""
     if _host(R, t):
         batch = np.broadcast_shapes(R.shape[:-2], t.shape[:-1])
         out = np.zeros(batch + (4, 4), np.result_type(R, t))
-    else:
-        batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-        out = R.new_zeros(batch + (4, 4))
-    out[..., :3, :3] = R
-    out[..., :3, 3] = t
-    out[..., 3, 3] = 1.0
-    return out
+        out[..., :3, :3] = R
+        out[..., :3, 3] = t
+        out[..., 3, 3] = 1.0
+        return out
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 
 def rot(T):
@@ -108,32 +114,9 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     return _eye3_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
 
 
-def _quat_from_rotation_matrix(R: torch.Tensor) -> torch.Tensor:
-    """Unit quaternion (w, x, y, z) with w >= 0, by the branch-free
-    Shepperd scheme of pcr_tpu/utils/quaternion.from_rotation_matrix."""
-    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
-    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
-    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
-    tr = m00 + m11 + m22
-    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
-    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
-    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
-    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
-    dens = torch.stack(
-        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
-        dim=-1,
-    )
-    best = torch.argmax(dens, dim=-1)
-    cands = torch.stack([qw, qx, qy, qz], dim=-2)              # (..., 4, 4)
-    idx = best[..., None, None].expand(best.shape + (1, 4))
-    q = torch.gather(cands, -2, idx)[..., 0, :]
-    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
-    return torch.where(q[..., :1] < 0, -q, q)
-
-
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Log map of SO(3) via the quaternion: omega = 2 atan2(|q_v|, q_w) q_v/|q_v|."""
-    q = _quat_from_rotation_matrix(R)
+    q = quaternion.from_rotation_matrix(R)
     qw, qv = q[..., 0], q[..., 1:]
     vn = torch.linalg.norm(qv, dim=-1)
     theta = 2.0 * torch.atan2(vn, qw)
@@ -181,6 +164,50 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 # Reference pose-chain conventions
 # ---------------------------------------------------------------------------
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
+def _inclusive_scan(x: torch.Tensor, combine) -> torch.Tensor:
+    """out[i] = x[0] (+) x[1] (+) ... (+) x[i] along dim 0 for an associative
+    ``combine(earlier, later)``: the Hillis-Steele doubling scan, ceil(log2 n)
+    batched steps (the counterpart of ``jax.lax.associative_scan``; the
+    products are grouped differently, so f32 results agree to round-off)."""
+    out, d = x, 1
+    while d < x.shape[0]:
+        out = torch.cat([out[:d], combine(out[:-d], out[d:])])
+        d *= 2
+    return out
+
+
+def _rev_matmul_scan(Rs):
+    """cum[i] = R_i @ R_{i-1} @ ... @ R_0.
+
+    Numpy inputs take a sequential float64 host path (circuit chains of ~900
+    rotation products drift by tens of metres in float32); tensors take the
+    doubling scan in their own dtype."""
+    if _host(Rs):
+        out = np.empty((len(Rs), 3, 3))
+        acc = np.eye(3)
+        for i in range(len(Rs)):
+            acc = np.float64(Rs[i]) @ acc
+            out[i] = acc
+        return out
+    return _inclusive_scan(Rs, lambda a, b: b @ a)
+
+
+def _cat(xs):
+    return np.concatenate(xs, axis=0) if _host(*xs) else torch.cat(xs, dim=0)
+
+
+def _cumsum(x):
+    return np.cumsum(x, axis=0) if _host(x) else torch.cumsum(x, dim=0)
+
+
+def _eye_like(T, k: int):
+    return np.eye(k) if _host(T) else torch.eye(k, dtype=T.dtype, device=T.device)
+
+
 def relative_to_absolute(T_rel):
     """The reference's ``relative_to_absolute_poses``.
 
@@ -192,21 +219,62 @@ def relative_to_absolute(T_rel):
     float64, as in the JAX package.
     """
     n = T_rel.shape[0]
+    R_cum = _rev_matmul_scan(rot(T_rel))
+    ts = trans(T_rel)
+    # d[0] = t_0, d[i] = R_cum[i-1] @ t_i
+    t_cum = _cumsum(_cat([ts[:1], _matvec(R_cum[:-1], ts[1:])]))
+    poses = make_pose(R_cum, t_cum)                  # poses[i] is node i+1
+    return _cat([_eye_like(poses, 4)[None], poses[: n - 1]])
+
+
+def relative_to_absolute_standard(T_rel):
+    """The STANDARD SE(3) chain of the same relative poses: A_0 = I and
+    A_{i+1} = A_i @ rel_i (rel_i maps frame i+1 -> i), so A_i maps frame
+    i -> frame 0.  Open3D's pose graph, and the port's, are consistent with
+    this chain; the reference's own ``relative_to_absolute`` composes
+    rotations in reversed order and differs from it by ~55 m over the
+    901-scan NCLT circuit.  Numpy inputs chain sequentially in float64."""
+    n = T_rel.shape[0]
     if _host(T_rel):
-        T_rel = np.asarray(T_rel, np.float64)
         out = np.empty((n, 4, 4))
-        acc_R, acc_t = np.eye(3), np.zeros(3)
-    else:
-        out = T_rel.new_empty((n, 4, 4))
-        acc_R = torch.eye(3, dtype=T_rel.dtype, device=T_rel.device)
-        acc_t = T_rel.new_zeros(3)
-    out[0] = make_pose(acc_R, acc_t)
-    for i in range(n - 1):
-        # t_abs[i+1] = R_cum[i-1] @ t_i + t_abs[i]  (R_cum[-1] = I)
-        acc_t = _matvec(acc_R, trans(T_rel[i])) + acc_t
-        acc_R = rot(T_rel[i]) @ acc_R
-        out[i + 1] = make_pose(acc_R, acc_t)
-    return out
+        acc = np.eye(4)
+        out[0] = acc
+        for i in range(n - 1):
+            acc = acc @ np.float64(T_rel[i])
+            out[i + 1] = acc
+        return out
+    cum = _inclusive_scan(T_rel, lambda a, b: a @ b)
+    return torch.cat([_eye_like(T_rel, 4)[None], cum[: n - 1]])
+
+
+def chain_rotations_ref(Rs):
+    """The reference's forward rotation accumulation used by LUM: out[0] = I
+    and out[i] = R_{i-1} @ ... @ R_0."""
+    cum = _rev_matmul_scan(Rs)
+    return _cat([_eye_like(cum, 3)[None], cum[:-1]])
+
+
+def absolute_to_relative(T_abs):
+    """The reference's ``poses_absolutas_para_relativas``:
+    relatives[i] = compose_ref(T_abs[i+1], invert(T_abs[i])), i = 0..n-2."""
+    return compose_ref(T_abs[1:], invert(T_abs[:-1]))
+
+
+def absolute_to_relative_circuit(T_abs):
+    """Implied circuit relatives of a trajectory, the wraparound edge
+    included: rel[k] = inv(A_k) @ A_{(k+1)%n}, mapping frame k+1 -> k
+    (standard composition)."""
+    return compose(invert(T_abs), _cat([T_abs[1:], T_abs[:1]]))
+
+
+def loop_closure_error(T_rel):
+    """The circuit's closure pose in the reference's convention: all n
+    relative poses accumulated (identity for a perfect circuit)."""
+    Rs, ts = rot(T_rel), trans(T_rel)
+    R_cum = _rev_matmul_scan(Rs)
+    rotated = _matvec(R_cum[:-1], ts[1:])
+    t_closure = ts[0] + (np.sum(rotated, axis=0) if _host(rotated) else rotated.sum(dim=0))
+    return make_pose(R_cum[-1], t_closure)
 
 
 def pose_errors(T_a, T_b):
@@ -218,3 +286,16 @@ def pose_errors(T_a, T_b):
         return d_R, np.linalg.norm(d[..., :3, 3], axis=-1)
     d_R = torch.sqrt(torch.sum(d[..., :3, :3] ** 2, dim=(-2, -1))) / 2.0 * np.sqrt(2.0)
     return d_R, torch.linalg.norm(d[..., :3, 3], dim=-1)
+
+
+def interpolate(T1, T2, t):
+    """SLERP on rotations and lerp on translations (the reference's
+    ``interpolar_duas_T``)."""
+    q = quaternion.slerp(quaternion.from_rotation_matrix(rot(T1)),
+                         quaternion.from_rotation_matrix(rot(T2)), t)
+    if _host(T1, T2):
+        t = np.asarray(t)
+    else:
+        t = torch.as_tensor(t, dtype=T1.dtype, device=T1.device)
+    tr = (1.0 - t)[..., None] * trans(T1) + t[..., None] * trans(T2)
+    return make_pose(quaternion.as_rotation_matrix(q), tr)

@@ -240,9 +240,10 @@ def test_evaluate_batches_match_loop(rng):
     pts, shift = _eval_clouds(rng)
     a = t_cloud.from_numpy(pts[:1000], 1024, device="cpu")
     b = t_cloud.from_numpy(shift[:1000], 1024, device="cpu")
-    Ts = [np.eye(4, dtype=np.float32), t_se3.se3_exp(torch.tensor([0.0, 0, 0.01, 0.02, 0, 0]))]
-    I_b = t_eval.information_matrix_batch([a, b], [b, a], 0.3, Ts, method="exact")
-    fit_b, _, n_b = t_eval.evaluate_registration_batch([a, b], [b, a], 0.3, Ts, method="exact")
+    Ts = torch.stack([torch.eye(4), t_se3.se3_exp(torch.tensor([0.0, 0, 0.01, 0.02, 0, 0]))])
+    sources, targets = t_cloud.stack_clouds([a, b]), t_cloud.stack_clouds([b, a])
+    I_b = t_eval.information_matrix_batch(sources, targets, 0.3, Ts, method="exact")
+    fit_b, _, n_b = t_eval.evaluate_registration_batch(sources, targets, 0.3, Ts, method="exact")
     assert I_b.shape == (2, 6, 6)
     for k, (s, t) in enumerate([(a, b), (b, a)]):
         torch.testing.assert_close(I_b[k], t_eval.information_matrix(s, t, 0.3, Ts[k],
