@@ -46,24 +46,34 @@ Phases (any failure ends the run with a non-zero exit code):
                in one window, the main path): its stage-1 and stage-2 poses
                equal phases 7 and 8's, K1-K6 each launched; its wall beside
                the staged runners' sum;
- 11. NCLT stage 3 — the 901-pose circuit of outputs/NCLT_poses.npz: the
+ 11. batched — run_stage1_fgr and run_stage2_mgicp at the default
+               batch_size=2 (stage 1 in chunks of pairs, one GNC over a
+               chunk; stage 2 streams at every batch size), cold and warm:
+               stage 1 within 0.5 m / 5 deg, stage 2 within 3 cm / 0.2 deg,
+               K1, K4-K6 and K1-K3 launched; both warm walls beside the
+               streamed ones;
+ 12. NCLT stage 3 — the 901-pose circuit of outputs/NCLT_poses.npz: the
                closed forms held to the file's trajectories (1e-6), the pose
                graph on the card with identity information matrices, timed
                (iterations, ms an iteration, the block-Thomas solves' share);
- 12. stage-1 split — features ms/scan; matching, tuple test, GNC and
-               evaluation ms/pair;
- 13. K7 brute   — K7 (brute-force 1-NN) against its plain version at the
+ 13. stage-1 split — features ms/scan; matching, tuple test, GNC and
+               evaluation ms/pair; the GNC of two pairs one after another
+               beside one batched GNC over both;
+ 14. K7 brute   — K7 (brute-force 1-NN) against its plain version at the
                finest-scale brute GICP pair, the 32768-row gate and an odd
                1000 x 3001 shape: d2 bit-equal, rows equal; kernel, plain
-               and library (cdist + min) times;
- 14. brute GICP — registration_gicp(corr_method="brute") warm-started over
+               and library (cdist + min) times; then on inputs full of exact
+               ties (k7_tie_inputs) at four shapes: the same, and every tie
+               across a group or ref-range boundary at its first row;
+ 15. brute GICP — registration_gicp(corr_method="brute") warm-started over
                the 5 pyramid scales of every pair: within 3 cm / 0.2 deg of
                ground truth and 5 mm / 0.05 deg of the band GICP; the exact
                gate evaluation beside the band one; K7 must have been
-               launched;
- 15. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
+               launched; pair 0 again on K7's plain version: the same pose
+               bit for bit;
+ 16. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
                every pair within 0.5 m / 5 deg;
- 16. retry ladder — stage 2 with retry_failed=True (the reference default),
+ 17. retry ladder — stage 2 with retry_failed=True (the reference default),
                pair RETRY_PAIR thrown RETRY_OFFSET_M off: its status must
                start with "retried" and it must land within 3 cm / 0.2 deg;
                the other pairs as in phase 4.
@@ -634,7 +644,8 @@ def timed_runs(label: str, runs, fn):
     return out, launches, wall
 
 
-def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
+def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False,
+               batch_size: int = 1):
     """Stage 2 over the circuit from ``init``; every pair within 3 cm /
     0.2 deg, and K1-K3 launched by the last run.  Returns its (poses,
     metrics, launches, wall seconds)."""
@@ -643,7 +654,7 @@ def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
     with tempfile.TemporaryDirectory() as tmp:
         def one(run):
             cfg = dataclasses.replace(stage2_config(str(Path(tmp) / run)),
-                                      retry_failed=retry_failed)
+                                      retry_failed=retry_failed, batch_size=batch_size)
             metrics = pipeline.PairMetrics()
             out = pipeline.run_stage2_mgicp(cfg, init_poses=init.copy(), clouds=clouds,
                                             n=N_SCANS, metrics=metrics)
@@ -670,9 +681,9 @@ def run_stage2(clouds, gt, init, label: str, runs, retry_failed: bool = False):
 
 def phase_slice(clouds, gt, init):
     """Stage 2 over the circuit twice from the real NCLT FGR errors; returns
-    the warm run's (poses, launch counts)."""
-    out, _, launches, _ = run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
-    return out, launches
+    the warm run's (poses, launch counts, wall seconds)."""
+    out, _, launches, wall = run_stage2(clouds, gt, init, "stage 2", ("cold", "warm"))
+    return out, launches, wall
 
 
 def phase_split(clouds, init) -> None:
@@ -880,19 +891,20 @@ def stage1_config(output_root: str):
     return pipeline.PipelineConfig(dataset="NCLT", batch_size=1, output_root=output_root)
 
 
-def phase_stage1(clouds, gt):
+def phase_stage1(clouds, gt, batch_size: int = 1, label: str = "stage 1"):
     """Stage 1 over the circuit, cold and warm; every pair within 0.5 m /
     5 deg.  Returns (poses, the warm run's launch counts and wall seconds)."""
     from pcr_tpu_torch import pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
         def one(run):
-            cfg = stage1_config(str(Path(tmp) / run))
+            cfg = dataclasses.replace(stage1_config(str(Path(tmp) / run)),
+                                      batch_size=batch_size)
             metrics = pipeline.PairMetrics()
             out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
-        (cfg, metrics, out), launches, wall = timed_runs("stage 1", ("cold", "warm"), one)
+        (cfg, metrics, out), launches, wall = timed_runs(label, ("cold", "warm"), one)
         check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
@@ -902,15 +914,17 @@ def phase_stage1(clouds, gt):
               f"fitness {row['fitness']:.4f}")
         if not (e_t < MAX_FGR_T_ERR_M and e_r < MAX_FGR_R_ERR_DEG):
             raise AssertionError(f"FGR pair {k} off ground truth: {e_t} m, {e_r} deg")
-    print(f"stage 1: worst pair error {worst[0] * 100:.2f} cm, {worst[1]:.3f} deg "
+    print(f"{label}: worst pair error {worst[0] * 100:.2f} cm, {worst[1]:.3f} deg "
           f"(limits {MAX_FGR_T_ERR_M * 100:g} cm, {MAX_FGR_R_ERR_DEG} deg)")
-    check_launched(launches, STAGE1_KERNELS, "stage 1")
+    check_launched(launches, STAGE1_KERNELS, label)
     return out, launches, wall
 
 
 def phase_stage1_split(clouds) -> None:
     """Warm stage-1 time split into features per scan and, per pair,
-    matching, tuple test, GNC and evaluation (a synchronize after each)."""
+    matching, tuple test, GNC and evaluation (a synchronize after each);
+    then the GNC of the first two pairs one after another beside one GNC
+    over both, as the batched runner runs it."""
     import torch
 
     from pcr_tpu_torch import pipeline
@@ -928,6 +942,7 @@ def phase_stage1_split(clouds) -> None:
                                      cfg.voxel_size, cfg.stage1_band) for c in clouds]
     t_feat = clock() - t0
     split = np.zeros(4)
+    gnc_inputs = []
     for s, t in pipeline.circuit_pairs(N_SCANS):
         B = max(feats[s][0].capacity, feats[t][0].capacity)
         src, fs, tgt, ft = pipeline._pad_pair(*feats[s], *feats[t], B)
@@ -942,10 +957,31 @@ def phase_stage1_split(clouds) -> None:
         t3 = clock()
         evaluate.evaluate_registration(src, tgt, opts.maximum_correspondence_distance, T)
         split += np.array([t1 - t0, t2 - t1, t3 - t2, clock() - t3])
+        gnc_inputs.append((src, tgt, ci, cj, cm))
     ms = split / N_SCANS * 1e3
     print(f"stage-1 split: features {t_feat / N_SCANS * 1e3:.1f} ms/scan; per pair: matching "
           f"{ms[0]:.1f} ms, tuple test {ms[1]:.1f} ms, GNC {ms[2]:.1f} ms, evaluation "
           f"{ms[3]:.1f} ms ({ms.sum():.1f} ms/pair)")
+    # the batched runner's GNC: the first two pairs padded to one capacity,
+    # their GNCs one after another beside one GNC over the pair of them
+    B = max(x[0].capacity for x in gnc_inputs[:2])
+    opts = fgr.default_options_capacity(B, cfg.voxel_size)
+    pad = [(cloud.pad_to(src, B), cloud.pad_to(tgt, B), torch.arange(B, device=ci.device),
+            cloud.pad_rows(cj, B, 0), cloud.pad_rows(cm, B, False))
+           for src, tgt, ci, cj, cm in gnc_inputs[:2]]
+    loop, batch = [], []
+    for _ in range(3):
+        t0 = clock()
+        T_loop = torch.stack([fgr.fgr_from_correspondences(*x, opts) for x in pad])
+        t1 = clock()
+        T_batch = fgr.fgr_from_correspondences(
+            cloud.stack_clouds([x[0] for x in pad]), cloud.stack_clouds([x[1] for x in pad]),
+            *(torch.stack([x[i] for x in pad]) for i in (2, 3, 4)), opts)
+        loop.append(t1 - t0)
+        batch.append(clock() - t1)
+    print(f"GNC of a chunk of 2 pairs (capacity {B}): one after another "
+          f"{statistics.median(loop) * 1e3:.1f} ms, batched {statistics.median(batch) * 1e3:.1f} "
+          f"ms (median of 3); poses within {float((T_loop - T_batch).abs().max()):.2e}")
 
 
 def check_k7(label: str, q, r, library: bool = True):
@@ -970,11 +1006,57 @@ def check_k7(label: str, q, r, library: bool = True):
         lib = cuda_ms(lambda: torch.cdist(
             q, r, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1), 5)
     lim = bound(12 * nq + 12 * nr + 8 * nq, 9.0 * nq * nr)
-    print(f"K7 nn1 {label}: {nq} q x {nr} refs, {nk.nn1_splits(nq, nr, nk._sm_count(0))} "
+    print(f"K7 nn1 {label}: {nq} q x {nr} refs, {nk.nn1_splits(nq, nr, nk.nn1_slots(0))} "
           f"ref splits, d2 bit-equal, rows equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"bound {lim[0]:.4f} ms, library (cdist + min) "
           f"{'not timed' if lib is None else f'{lib:.4f} ms'}")
     return 0.0, ms, plain, *lim, lib
+
+
+def k7_tie_inputs(nq: int, nr: int, boundaries, seed: int = 0):
+    """(q (nq, 3), r (nr, 3)) float32 arrays full of exact ties for K7:
+    refs on a 0.5 m lattice with every 7th row repeating an earlier one,
+    queries on a 0.25 m lattice (many equidistant from several refs), ten of
+    them on ref rows; and for each row b of ``boundaries`` (1 <= b < nr) one
+    query off the lattice whose two nearest refs, rows b - 1 and b, lie at
+    equal distance (1 m either side along x): its first minimum is row b - 1
+    across whatever group or split boundary falls at b.  Those queries are
+    the last ones, in the order of the sorted, distinct boundaries."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(-6, 7, size=(nr, 3)).astype(np.float32) * 0.5
+    dup = np.arange(7, nr, 7)
+    r[dup] = r[dup // 2]
+    q = rng.integers(-12, 13, size=(nq, 3)).astype(np.float32) * 0.25
+    q[:min(nq, 10)] = r[rng.integers(0, nr, size=min(nq, 10))]
+    ties = tie_rows(nr, boundaries)
+    if len(ties) + 10 > nq:
+        raise ValueError(f"{nq} queries cannot hold {len(ties)} boundary ties")
+    for i, b in enumerate(ties):
+        c = np.float32(100.0 + 10.0 * i)
+        r[b - 1] = (c + 1.0, c, c)
+        r[b] = (c - 1.0, c, c)
+        q[nq - len(ties) + i] = (c, c, c)
+    return q, r
+
+
+def k7_tie_bounds(nr: int, splits: int) -> list[int]:
+    """The rows K7's tie checks place ties at when the refs run in
+    ``splits`` ranges: across the first group boundary, inside the third
+    group, across the first two range boundaries and at the last row."""
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    per_split = nk.nn1_split_rows(nr, splits)
+    return [nk.NN1_GROUP, 2 * nk.NN1_GROUP + 3, per_split, 2 * per_split, nr - 1]
+
+
+def tie_rows(nr: int, boundaries) -> list[int]:
+    """The boundary rows ``k7_tie_inputs`` places a tie at: distinct, sorted,
+    1 <= b < nr, no two adjacent (each tie owns rows b - 1 and b)."""
+    out: list[int] = []
+    for b in sorted(set(int(b) for b in boundaries)):
+        if 1 <= b < nr and (not out or b > out[-1] + 1):
+            out.append(b)
+    return out
 
 
 def phase_k7(dev, clouds, gt) -> dict:
@@ -1002,8 +1084,39 @@ def phase_k7(dev, clouds, gt) -> dict:
     q, r = qr(clouds[1], clouds[0])
     gate_rec = check_k7("gate", q, r)
     odd_rec = check_k7("odd shape", q[:1000].contiguous(), r[:3001].contiguous(), library=False)
+    for nq, nr in K7_TIE_SHAPES:
+        check_k7_ties(dev, nq, nr)
     return record("nn1", "pcr_tpu_torch/csrc/nn1.cu", "pcr_tpu/ops/pallas/nn_kernels.py:192",
                   [gicp_rec, gate_rec, odd_rec], gicp_rec)
+
+
+# K7's tie cases: fewer refs than a group, both counts off every multiple,
+# the finest GICP's shape
+K7_TIE_SHAPES = ((37, 5), (1000, 3001), (4099, 21504), (21504, 21504))
+
+
+def check_k7_ties(dev, nq: int, nr: int) -> None:
+    """K7 on ``k7_tie_inputs`` (duplicated refs, lattice ties, equal nearest
+    refs straddling a group boundary, a boundary of the ref ranges the
+    wrapper splits into, and the last row): d2 bit-equal and rows equal to
+    the plain version, each boundary tie at its first row."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    splits = nk.nn1_splits(nq, nr, nk.nn1_slots(0))
+    bounds = k7_tie_bounds(nr, splits)
+    q, r = (torch.as_tensor(x, device=dev) for x in k7_tie_inputs(nq, nr, bounds))
+    d_k, i_k = nk.nn1(q, r)
+    d_p, i_p = nk.nn1_reference(q, r)
+    ties = tie_rows(nr, bounds)
+    if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+            and i_k[nq - len(ties):].tolist() == [b - 1 for b in ties]):
+        raise AssertionError(f"K7 ties {nq} x {nr}: d2 differs at {int((d_k != d_p).sum())}, "
+                             f"rows at {int((i_k != i_p).sum())} queries")
+    print(f"K7 nn1 ties {nq} q x {nr} refs ({splits} ref splits of "
+          f"{nk.nn1_split_rows(nr, splits)} rows): d2 "
+          f"bit-equal, rows equal, boundary ties at rows {ties} resolved to the first")
 
 
 def phase_brute(clouds, gt, init):
@@ -1027,14 +1140,18 @@ def phase_brute(clouds, gt, init):
     t0 = time.perf_counter()
     pyrs = [multiscale.build_pyramid(c, cfg.mgicp_scales, caps) for c in clouds]
     worst = [0.0, 0.0, 0.0, 0.0]
-    for k, (s, t) in enumerate(circuit_pairs(N_SCANS)):
+
+    def brute_scales(k, s, t):
         T, its = init[k].astype(np.float32), []
         for i, dist in enumerate(dists):
             res = gicp.registration_gicp(pyrs[s][i], pyrs[t][i], dist, T, corr_method="brute",
                                          max_iteration=cfg.mgicp_iterations)
             T = res.transformation
             its.append(int(res.iterations))
-        brute = T.double().cpu().numpy()
+        return T.double().cpu().numpy(), its
+
+    for k, (s, t) in enumerate(circuit_pairs(N_SCANS)):
+        brute, its = brute_scales(k, s, t)
         band = multiscale.multiscale_gicp_pyramids(
             pyrs[s], pyrs[t], init[k].astype(np.float32)).transformation.double().cpu().numpy()
         e_t, e_r = pose_error(brute, gt[k])
@@ -1059,6 +1176,21 @@ def phase_brute(clouds, gt, init):
           f"mm {worst[3]:.4f} deg from band (limits {MAX_BRUTE_BAND_T_M * 1000:g} mm, "
           f"{MAX_BRUTE_BAND_R_DEG} deg); launches {launches}")
     check_launched(launches, BRUTE_KERNELS, "the brute GICP")
+    # K7's d2 and rows are bit-equal to its plain version's, so the brute
+    # GICP on the plain version lands on the same poses, bit for bit
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    kernel = nk.nn1
+    nk.nn1 = nk.nn1_reference
+    try:
+        plain = brute_scales(0, *circuit_pairs(N_SCANS)[0])[0]
+    finally:
+        nk.nn1 = kernel
+    first = brute_scales(0, *circuit_pairs(N_SCANS)[0])[0]
+    if not np.array_equal(plain, first):
+        raise AssertionError(f"brute pair 0 on K7's plain version moved by "
+                             f"{float(np.abs(plain - first).max())}")
+    print("brute pair 0 on K7's plain version: the same pose, bit for bit")
     return launches
 
 
@@ -1106,6 +1238,24 @@ def phase_retry(clouds, gt, init, base: np.ndarray) -> None:
         raise AssertionError(f"the ladder moved the other pairs by {moved}")
     print(f"retry ladder: pair {RETRY_PAIR} thrown {RETRY_OFFSET_M:g} m off -> {status}; "
           f"other pairs within {moved:.3e} of the unthrown run")
+
+
+def phase_batched(clouds, gt, init, rel1, rel2, wall1: float, wall2: float):
+    """The staged runners' batched branches at the default batch_size=2,
+    cold and warm: stage 1 (chunks of 2 pairs, one GNC over each chunk)
+    within 0.5 m / 5 deg and K1, K4-K6 launched; stage 2 from the real NCLT
+    FGR errors (the streamed branch, ladder on) within 3 cm / 0.2 deg and
+    K1-K3 launched.  Prints both warm walls beside the streamed ones (stage 1
+    and phase 4's stage 2) and the largest pose difference from them.
+    Returns the launch counts of both warm runs."""
+    out1, launches1, b1 = phase_stage1(clouds, gt, batch_size=2, label="stage 1 (batch 2)")
+    out2, _, launches2, b2 = run_stage2(clouds, gt, init, "stage 2 (batch 2)",
+                                        ("cold", "warm"), retry_failed=True, batch_size=2)
+    print(f"batched runners (batch_size 2): stage 1 warm {b1:.3f} s (streamed {wall1:.3f} s), "
+          f"poses within {float(np.abs(out1 - rel1).max()):.3e} of the streamed; stage 2 warm "
+          f"{b2:.3f} s (streamed {wall2:.3f} s), poses within "
+          f"{float(np.abs(out2 - rel2).max()):.3e} of the streamed")
+    return launches1, launches2
 
 
 STAGE3_METHODS = ("LUM", "SLERP", "SLERP_LUM", "pose_graph")
@@ -1296,7 +1446,7 @@ def main() -> int:
     clouds = [cloud.from_numpy(s, CAPACITY, device=dev) for s in scans]
     print("scan valid points:", [len(s) for s in scans])
     records = phase_kernels(dev, clouds, gt)
-    base, launches2 = phase_slice(clouds, gt, init)
+    base, launches2, wall2 = phase_slice(clouds, gt, init)
     phase_split(clouds, init)
     records += phase_feature_kernels(clouds)
     rel1, launches1, wall1 = phase_stage1(clouds, gt)
@@ -1305,6 +1455,7 @@ def main() -> int:
                                      retry_failed=True)
     launches3, wall3 = phase_stage3(clouds, gt, rel12)
     launches_main = phase_full(clouds, rel1, rel12, wall1 + wall12 + wall3)
+    launches_b1, launches_b2 = phase_batched(clouds, gt, init, rel1, base, wall1, wall2)
     phase_stage3_nclt(dev)
     phase_stage1_split(clouds)
     records.append(phase_k7(dev, clouds, gt))
@@ -1312,6 +1463,7 @@ def main() -> int:
     phase_stage1_selection(clouds, gt)
     phase_retry(clouds, gt, init, base)
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
+          f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; run_full (the main path) {launches_main}")
     for rec in records:
         rec["launches"] = (launches7 if rec["name"] in BRUTE_KERNELS

@@ -1,14 +1,13 @@
 """pcr_tpu_torch — the PyTorch/CUDA port of ``pcr_tpu`` for NVIDIA Hopper.
 
 The JAX package ``pcr_tpu`` stays the reference; this package mirrors its
-module paths and function names.  Ported so far: stage 1 (banded normals
-+ FPFH, mutual feature matching, the tuple test and GNC) and stage 2
-(multi-scale GICP over per-cloud pyramids), on the streamed single-pair
-paths of ``pipeline.run_stage1_fgr`` and ``pipeline.run_stage2_mgicp``.
-The six Pallas kernels those paths run (K1-K6) are hand-written CUDA
-kernels here (``csrc/``, bound in ``ops/kernels/``); on CPU tensors every
-wrapper runs its plain PyTorch version instead.  Clouds are built on the
-CUDA card unless the caller asks for the CPU.
+module paths and function names.  Ported so far: stages 1, 2 and 3 and
+``pipeline.run_full`` (stages 1 -> 3 in one window, the main path); the
+staged runners at every ``batch_size`` (stage 1's batched branch, one card,
+at ``batch_size > 1``; stage 2 streams at every batch size).  The seven Pallas kernels those paths run (K1-K7) are
+hand-written CUDA kernels here (``csrc/``, bound in ``ops/kernels/``); on
+CPU tensors every wrapper runs its plain PyTorch version instead.  Clouds
+are built on the CUDA card unless the caller asks for the CPU.
 
 Importing this package never imports ``jax`` or ``pcr_tpu``.
 """

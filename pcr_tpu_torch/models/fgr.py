@@ -36,7 +36,7 @@ from ..ops import fpfh as fpfh_ops
 from ..ops import knn as knn_ops
 from ..ops import normals as normals_ops
 from ..utils import se3
-from ..utils.cloud import Cloud
+from ..utils.cloud import Cloud, stack_clouds
 from . import evaluate as eval_mod
 from .gicp import RegistrationResult, solve6_cholesky
 
@@ -105,55 +105,79 @@ def tuple_test(pts_src, pts_tgt, corr_i, corr_j, corr_mask, seed: int,
 
 
 def _center_radius(pts: torch.Tensor, mask: torch.Tensor):
-    w = mask.to(torch.float32)[:, None]
-    c = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
-    return c, torch.amax(torch.where(mask, _norm3(pts - c), 0.0))
+    w = mask.to(torch.float32)[..., None]
+    c = torch.sum(pts * w, dim=-2) / torch.clamp(torch.sum(w, dim=-2), min=1.0)
+    return c, torch.amax(torch.where(mask, _norm3(pts - c[..., None, :]), 0.0), dim=-1)
+
+
+def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(pts, idx.long()[..., None], dim=-2)
 
 
 def fgr_from_correspondences(source: Cloud, target: Cloud, corr_i, corr_j, corr_mask,
                              opts: FgrOptions) -> torch.Tensor:
     """GNC over fixed correspondences; returns the (4, 4) f32 pose.  A Python
-    loop of ``iteration_number`` steps that never reads the device."""
+    loop of ``iteration_number`` steps that never reads the device.
+
+    Stacked pairs (clouds and correspondences with a leading dimension B)
+    run the GNC once over the batch and return (B, 4, 4): every step is the
+    same launches for B pairs, and each pair's arithmetic is its own."""
     dev = source.device
-    p_all = source.points[corr_i]
-    q_all = target.points[corr_j]
+    p_all = _take_rows(source.points, corr_i)
+    q_all = _take_rows(target.points, corr_j)
     w_corr = corr_mask.to(torch.float32)
+    batch = w_corr.shape[:-1]
     if opts.use_absolute_scale:
-        scale = torch.ones((), dtype=torch.float32, device=dev)
-        c_src = c_tgt = torch.zeros(3, dtype=torch.float32, device=dev)
+        scale = torch.ones(batch, dtype=torch.float32, device=dev)
+        c_src = c_tgt = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
     else:
         c_src, r_src = _center_radius(source.points, source.mask)
         c_tgt, r_tgt = _center_radius(target.points, target.mask)
         scale = torch.clamp(torch.maximum(r_src, r_tgt), min=1e-6)
-    p = (p_all - c_src) / scale
-    q = (q_all - c_tgt) / scale
+    p = (p_all - c_src[..., None, :]) / scale[..., None, None]
+    q = (q_all - c_tgt[..., None, :]) / scale[..., None, None]
     delta = opts.maximum_correspondence_distance / scale    # normalized stop scale
-    enough = torch.sum(w_corr) >= 3
+    enough = (torch.sum(w_corr, dim=-1) >= 3)[..., None]
 
     # mu starts at the (normalized) global scale squared = 1 in relative-scale
     # mode; in absolute-scale mode at a proxy of the squared extent
-    mu = torch.full((), 1.0 if not opts.use_absolute_scale
+    mu = torch.full(batch, 1.0 if not opts.use_absolute_scale
                     else opts.maximum_correspondence_distance ** 2 * 1e4,
                     dtype=torch.float32, device=dev)
-    T = torch.eye(4, dtype=torch.float32, device=dev)
-    minus_eye = (-torch.eye(3, dtype=torch.float32, device=dev)).expand(p.shape[0], 3, 3)
+    T = torch.eye(4, dtype=torch.float32, device=dev).expand(batch + (4, 4))
+    minus_eye = (-torch.eye(3, dtype=torch.float32, device=dev)).expand(p.shape[:-1] + (3, 3))
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     for it in range(opts.iteration_number):
         if opts.decrease_mu and it % 4 == 0:
             mu = torch.where(mu > delta * delta, mu / opts.division_factor, mu)
         pt = se3.transform_points(T, p)
         r = q - pt
-        l = torch.square(mu / (mu + torch.sum(r * r, dim=-1))) * w_corr
-        G = torch.cat([se3.skew(pt), minus_eye], dim=-1)   # (N, 3, 6)
-        lG = G * l[:, None, None]
-        H = torch.einsum("nij,nik->jk", lG, G)
-        g = torch.einsum("nij,ni->j", lG, r)
-        H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * eye6
+        l = torch.square(mu[..., None] / (mu[..., None] + torch.sum(r * r, dim=-1))) * w_corr
+        G = torch.cat([se3.skew(pt), minus_eye], dim=-1)   # (..., N, 3, 6)
+        lG = G * l[..., None, None]
+        H = torch.einsum("...nij,...nik->...jk", lG, G)
+        g = torch.einsum("...nij,...ni->...j", lG, r)
+        trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+        H = H + (1e-6 * (trace / 6.0 + 1.0))[..., None, None] * eye6
         xi = torch.where(enough, -solve6_cholesky(H, g), 0.0)
         T = se3.compose(se3.se3_exp(xi), T)
     # denormalize: q = s*(R p_hat + t_hat) + c_tgt with p_hat = (p - c_src)/s
     R = se3.rot(T)
-    return se3.make_pose(R, scale * se3.trans(T) + c_tgt - R @ c_src)
+    return se3.make_pose(R, scale[..., None] * se3.trans(T) + c_tgt
+                         - (R @ c_src[..., None])[..., 0])
+
+
+def _correspondences(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
+                     seed: int, n_trials: int, max_tuples, u=None):
+    """Mutual matching, then the tuple test: (corr_i, corr_j, corr_mask)."""
+    corr_i, corr_j, corr_mask = match_features(feat_src, source.mask, feat_tgt, target.mask)
+    if opts.tuple_test:
+        corr_mask = tuple_test(
+            source.points, target.points, corr_i, corr_j, corr_mask, seed,
+            tuple_scale=opts.tuple_scale,
+            max_tuples=opts.maximum_tuple_count if max_tuples is None else max_tuples,
+            n_trials=n_trials, u=u)
+    return corr_i, corr_j, corr_mask
 
 
 def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
@@ -162,13 +186,8 @@ def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: Fgr
     """Full FGR: mutual matching -> tuple test -> GNC -> evaluation
     (``models/evaluate.evaluate_registration``, kernel K1).  ``max_tuples``
     overrides ``opts.maximum_tuple_count``."""
-    corr_i, corr_j, corr_mask = match_features(feat_src, source.mask, feat_tgt, target.mask)
-    if opts.tuple_test:
-        corr_mask = tuple_test(
-            source.points, target.points, corr_i, corr_j, corr_mask, seed,
-            tuple_scale=opts.tuple_scale,
-            max_tuples=opts.maximum_tuple_count if max_tuples is None else max_tuples,
-            n_trials=n_trials)
+    corr_i, corr_j, corr_mask = _correspondences(source, target, feat_src, feat_tgt, opts,
+                                                 seed, n_trials, max_tuples)
     T = fgr_from_correspondences(source, target, corr_i, corr_j, corr_mask, opts)
     fitness, rmse, n_corr = eval_mod.evaluate_registration(
         source, target, opts.maximum_correspondence_distance, T)
@@ -187,6 +206,42 @@ def fgr_features(c: Cloud, voxel_size: float) -> tuple[Cloud, torch.Tensor]:
         c.points, c.mask, d2, idx, 2 * voxel_size, 20)
     feat = fpfh_ops.fpfh(c.points, normals, c.mask, 10 * voxel_size, 200, knn_result=(d2, idx))
     return Cloud(points=c.points, mask=c.mask, normals=normals, covariances=cov), feat
+
+
+def batched_registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt,
+                             opts: FgrOptions, seeds, n_trials: int = 16384,
+                             max_tuples=None, u: torch.Tensor | None = None
+                             ) -> RegistrationResult:
+    """FGR over stacked pairs (leading dimension B), the pair-parallel form of
+    stage 1: a ``RegistrationResult`` whose fields lead with B.
+
+    ``seeds``: B tuple-test seeds, one a pair; ``max_tuples``: optional B
+    tuple caps, one a pair; ``u``: optional (B, n_trials, 3) uniforms for the
+    tuple tests.  Matching, the tuple test and the evaluation (kernel K1) run
+    pair by pair; the 300-step GNC runs once over the batch, so its launches
+    are paid once for B pairs (the GNC is bound by host launches)."""
+    corr = [_correspondences(source[b], target[b], feat_src[b], feat_tgt[b], opts,
+                             int(seeds[b]), n_trials,
+                             None if max_tuples is None else int(max_tuples[b]),
+                             None if u is None else u[b])
+            for b in range(len(seeds))]
+    corr_i, corr_j, corr_mask = (torch.stack(c) for c in zip(*corr))
+    T = fgr_from_correspondences(source, target, corr_i, corr_j, corr_mask, opts)
+    evals = [eval_mod.evaluate_registration(source[b], target[b],
+                                            opts.maximum_correspondence_distance, T[b])
+             for b in range(len(seeds))]
+    fitness, rmse, n_corr = (torch.stack(e) for e in zip(*evals))
+    return RegistrationResult(T, fitness, rmse, n_corr,
+                              torch.full((len(seeds),), opts.iteration_number,
+                                         dtype=torch.int32, device=source.device))
+
+
+def batched_fgr_features(clouds: Cloud, voxel_size: float) -> tuple[Cloud, torch.Tensor]:
+    """``fgr_features`` of every scan of a stacked Cloud (leading dimension
+    B), one scan after another: (stacked clouds with normals and
+    covariances, (B, N, 33) features)."""
+    out = [fgr_features(clouds[b], voxel_size) for b in range(clouds.points.shape[0])]
+    return stack_clouds([c for c, _ in out]), torch.stack([f for _, f in out])
 
 
 def registro_fgr(source: Cloud, target: Cloud, voxel_size: float,

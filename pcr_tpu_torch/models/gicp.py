@@ -95,9 +95,11 @@ def solve6_cholesky(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     looped LU costs ~1 ms on a TPU; in eager PyTorch the unrolled form is
     ~200 tiny launches, so the same factorization runs as two batched
     library calls with no host sync (``cholesky_ex`` does not check info).
+    Leading batch dimensions of H (..., 6, 6) and g (..., 6) are solved
+    together.
     """
     L, _ = torch.linalg.cholesky_ex(H)
-    return torch.cholesky_solve(g[:, None], L)[:, 0]
+    return torch.cholesky_solve(g[..., None], L)[..., 0]
 
 
 def robust_weight(loss: str, r: torch.Tensor, k: float) -> torch.Tensor:

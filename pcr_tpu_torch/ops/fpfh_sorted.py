@@ -27,7 +27,7 @@ import torch
 from . import preprocess
 from .kernels import common
 from .kernels import feature_kernels as fk
-from ..utils.cloud import Cloud, PAD_COORD, pad_rows
+from ..utils.cloud import Cloud, PAD_COORD, pad_rows, stack_clouds
 
 N_BINS = fk.N_BINS
 FEATURE_DIM = fk.FEATURE_DIM
@@ -98,3 +98,14 @@ def fgr_features_sorted(c: Cloud, voxel_size: float, q_tile: int = 512, band: in
     out = Cloud(points=torch.where(ms[:, None], ps, PAD_COORD), mask=ms,
                 normals=normals, covariances=cov)
     return out, feat
+
+
+def batched_fgr_features_sorted(clouds: Cloud, voxel_size: float, q_tile: int = 512,
+                                band: int = 2048):
+    """``fgr_features_sorted`` of every scan of a stacked Cloud (leading
+    dimension B), one scan after another (kernels K4-K6 launch once a scan):
+    (stacked sorted clouds with normals and covariances, (B, N, 33)
+    features), for the chunked stage-1 runner."""
+    out = [fgr_features_sorted(clouds[b], voxel_size, q_tile=q_tile, band=band)
+           for b in range(clouds.points.shape[0])]
+    return stack_clouds([c for c, _ in out]), torch.stack([f for _, f in out])

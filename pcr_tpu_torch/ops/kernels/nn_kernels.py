@@ -20,28 +20,34 @@ queries of the main path fill the card's 132 SMs with warps; each thread
 takes a few queries, so one shared load serves several pairs.  Each lane
 keeps the first minimum of its rows and the lanes' minima merge by shuffles,
 lexicographically on (d2, row): the slab's first minimum, as torch.min.
-K7 keeps one query per thread with its running minimum in registers and
-streams the candidates through shared memory in fixed-size chunks, so the
-ref size does not set the shared memory size; it also splits the ref rows
-over several blocks per query tile (too few query blocks would leave most
-SMs idle) and merges the partial minima in a second small kernel.  Unlike
-the TPU kernels both compute d2 directly as (q - r)^2, so no re-score is
-needed for precision.
+K7 gives each thread several queries (one shared load of a ref row serves
+them all), folds each query's distances to a group of refs with a min and
+records, once a group, the group that improved the running minimum; each
+query's first minimum row is then re-scored within its recorded group.  The
+ref rows are split over several blocks per query block (too few query blocks
+would leave most SMs idle), staged through double-buffered shared memory, and
+the partial minima merge in a second small kernel.  Unlike the TPU kernels
+both compute d2 directly as (q - r)^2, so no re-score is needed for
+precision.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from . import build, common
 
 LAUNCHES = {"nn1_band": 0, "nn1": 0}
-# K7: threads (queries) a block, and the blocks it aims to put on each SM
+# K7's geometry (csrc/nn1.cu's kThreads, kQueries, kGroup, kMinBlocks: its
+# launch bounds hold the partial kernel to 64 registers, so 8 blocks fit an
+# SM), the waves of resident blocks it fills and the fewest rows of a ref
+# range; chosen on the H100 by tools/tune_nn1.py
 NN1_THREADS = 128
+NN1_QUERIES = 8
+NN1_GROUP = 8
 NN1_BLOCKS_PER_SM = 8
-NN1_MIN_SPLIT_ROWS = 2048
+NN1_WAVES = 1
+NN1_MIN_SPLIT_ROWS = 256
 
 
 def nn1_band_reference(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
@@ -96,18 +102,25 @@ def nn1_reference(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch
     return d_out, i_out
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def nn1_slots(index: int) -> int:
+    """K7's partial-kernel blocks resident on card ``index`` at once: its
+    SMs times NN1_BLOCKS_PER_SM."""
+    return torch.cuda.get_device_properties(index).multi_processor_count * NN1_BLOCKS_PER_SM
 
 
-def nn1_splits(nq: int, nr: int, sm_count: int) -> int:
+def nn1_splits(nq: int, nr: int, slots: int) -> int:
     """How many contiguous ref ranges K7 splits each query block's work into:
-    enough blocks for NN1_BLOCKS_PER_SM a SM, each range at least
-    NN1_MIN_SPLIT_ROWS rows."""
-    q_blocks = -(-nq // NN1_THREADS)
-    want = -(-sm_count * NN1_BLOCKS_PER_SM // q_blocks)
-    return max(1, min(want, nr // NN1_MIN_SPLIT_ROWS))
+    as many as fill NN1_WAVES waves of the card's ``slots`` resident blocks
+    without starting another, each range at least NN1_MIN_SPLIT_ROWS rows."""
+    q_blocks = -(-nq // (NN1_THREADS * NN1_QUERIES))
+    return max(1, min(NN1_WAVES * slots // q_blocks, nr // NN1_MIN_SPLIT_ROWS))
+
+
+def nn1_split_rows(nr: int, splits: int) -> int:
+    """Rows of each of K7's ref ranges (the last may hold fewer): whole
+    groups of NN1_GROUP, as csrc/nn1.cu's launcher computes them."""
+    rows = -(-nr // splits)
+    return -(-rows // NN1_GROUP) * NN1_GROUP
 
 
 def nn1(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,7 +142,7 @@ def nn1(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     out_row = torch.empty(nq, dtype=torch.int32, device=q.device)
     if nq == 0:
         return out_d, out_row
-    splits = nn1_splits(nq, nr, _sm_count(q.device.index or 0))
+    splits = nn1_splits(nq, nr, nn1_slots(q.device.index or 0))
     part_d = torch.empty(splits * nq, dtype=torch.float32, device=q.device)
     part_row = torch.empty(splits * nq, dtype=torch.int32, device=q.device)
     lib = build.library()

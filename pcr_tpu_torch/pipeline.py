@@ -1,6 +1,7 @@
-"""The circuit runners (port of pcr_tpu/pipeline.py): stage 1, stage 2
-(their streamed single-pair branches), stage 3 and ``run_full``, stages 1 to 3
-in one window, the main path.
+"""The circuit runners (port of pcr_tpu/pipeline.py): stage 1 (its streamed
+``batch_size=1`` and batched ``batch_size > 1`` branches on one card), stage 2
+(streamed at every batch size), stage 3 and ``run_full``, stages 1 to 3 in one
+window, the main path.
 
 Stage contract, kept from the reference: every stage persists poses as
 ``pose_{i+1}_{i}.txt`` / ``pose{i}.txt`` text files and the next stage reloads
@@ -13,10 +14,9 @@ them, so the pipeline is restartable at stage granularity.
   stage 3  global refinement: LUM / SLERP / SLERP+LUM (host float64) and the
            pose-graph LM over band-NN information matrices (on the card)
 
-Not ported yet: the batched (``batch_size > 1``) and mesh branches of the
-staged runners, dataset loading and the CLI.  Each raises
-``NotImplementedError`` where a run would need it; ``run_full`` reads no
-``batch_size`` and so runs on the default configuration.
+Not ported yet: the mesh branches of the staged runners (``mesh=``),
+dataset loading and the CLI.  Each raises ``NotImplementedError`` where a run
+would need it.
 """
 
 from __future__ import annotations
@@ -157,18 +157,20 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     writes them (``relative_poses_FGR``) and the metrics.
 
     ``clouds`` is a list of port Clouds, all on one device, which is where
-    the run happens.  Each scan's features (normals + FPFH) are computed once
-    at its own capacity bucket and shared by the two pairs it serves; a pair
-    runs at the larger of its two buckets."""
-    if mesh is not None or cfg.batch_size > 1:
-        raise NotImplementedError(
-            "only the streamed branch (batch_size=1, no mesh) is ported")
+    the run happens.  With ``batch_size`` 1 each scan's features (normals +
+    FPFH) are computed once at its own capacity bucket and shared by the two
+    pairs it serves; a pair runs at the larger of its two buckets.  With
+    ``batch_size`` > 1 pairs run in chunks (``_run_stage1_fgr_batched``)."""
+    if mesh is not None:
+        raise NotImplementedError("the mesh branch (mesh=) is not ported")
     if cfg.stage1_features not in ("banded", "selection"):
         raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     if clouds is None:
         raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     metrics = metrics if metrics is not None else PairMetrics()
+    if cfg.batch_size > 1:
+        return _run_stage1_fgr_batched(cfg, clouds, n, metrics)
     # every bucket up front: each read waits for the device, so none may
     # fall inside the pipelined loop
     buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
@@ -249,6 +251,57 @@ def _flag_stage1_outliers(poses: np.ndarray, metrics: PairMetrics, window: int =
     return count
 
 
+def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
+                            metrics: PairMetrics) -> np.ndarray:
+    """Pair-parallel stage 1 (pcr_tpu's batched branch).  A chunk of B =
+    ``batch_size`` consecutive circuit pairs touches B+1 consecutive-mod-n
+    scans: they are compacted to the largest capacity bucket among them,
+    featurized once each, and the chunk's pairs register in one batched FGR
+    call (``fgr.batched_registration_fgr``: one GNC over the batch).  Each
+    pair keeps the streamed branch's seed (fgr_seed + source scan) and its
+    tuple cap, 0.2 x the larger of its two scans' buckets; the other options
+    are ``default_options`` of scan 0.  The tail chunk repeats its last pair
+    up to B; the repeats are dropped.  A checkpoint is written every chunk,
+    and each pair's ``seconds`` is its chunk's wall over its real pairs."""
+    B = cfg.batch_size
+    opts = fgr_mod.default_options(clouds[0], clouds[0], cfg.voxel_size)
+    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    out = np.zeros((n, 4, 4))
+    ckpt = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
+    for start in range(0, n, B):
+        t0 = time.time()
+        m = min(B, n - start)  # real pairs in this chunk
+        scan_ids = [(start + j) % n for j in range(m + 1)]
+        cap = max(buckets[i] for i in scan_ids)
+        stacked = cloud_mod.stack_clouds([cloud_mod.compact(clouds[i], cap) for i in scan_ids])
+        if cfg.stage1_features == "banded":
+            feat_clouds, feats = fpfh_sorted.batched_fgr_features_sorted(
+                stacked, cfg.voxel_size, band=cfg.stage1_band)
+        else:
+            feat_clouds, feats = fgr_mod.batched_fgr_features(stacked, cfg.voxel_size)
+        # pair j of the chunk: source = scan slot j+1, target = slot j
+        src_pos = [min(j + 1, m) for j in range(B)]
+        tgt_pos = [min(j, m - 1) for j in range(B)]
+        max_tuples = [max(int(0.2 * max(buckets[scan_ids[a]], buckets[scan_ids[b]])), 256)
+                      for a, b in zip(src_pos, tgt_pos)]
+        seeds = [cfg.fgr_seed + scan_ids[a] for a in src_pos]
+        res = fgr_mod.batched_registration_fgr(
+            feat_clouds[src_pos], feat_clouds[tgt_pos], feats[src_pos], feats[tgt_pos], opts,
+            seeds, max_tuples=max_tuples)
+        T = res.transformation.double().cpu().numpy()
+        fit, rmse = res.fitness.cpu().numpy(), res.inlier_rmse.cpu().numpy()
+        dt = (time.time() - t0) / m
+        for j in range(m):
+            out[start + j] = T[j]
+            metrics.add("fgr", scan_ids[j + 1], scan_ids[j], float(fit[j]), float(rmse[j]), dt)
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        np.save(ckpt, out[: start + m])  # crash-resumable partial checkpoint
+    _flag_stage1_outliers(out, metrics)
+    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out)
+    metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+    return out
+
+
 def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
                 seed_base: int = 0):
     """Re-registration ladder: for each multiplier m, FGR on the full clouds
@@ -308,10 +361,13 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     ladder in a second pass, so the main loop never stalls on one.  Returns
     (n, 4, 4) f64 relative poses and writes them, the absolute chain and the
     metrics.
+
+    Every ``batch_size`` runs this streamed branch: pcr_tpu's batched branch
+    (chunks of pairs, each building its own pyramids) computes the same
+    poses, since a cloud's pyramid does not depend on the pair it serves.
     """
-    if mesh is not None or cfg.batch_size > 1:
-        raise NotImplementedError(
-            "only the streamed branch (batch_size=1, no mesh) is ported")
+    if mesh is not None:
+        raise NotImplementedError("the mesh branch (mesh=) is not ported")
     if clouds is None:
         raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]

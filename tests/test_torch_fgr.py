@@ -179,14 +179,17 @@ def test_stage1_writes_pose_files(stage1_runs):
 
 
 def test_stage1_refuses_unported_branches(tmp_path):
-    """The batched branch is not ported, and an unknown feature kind is
-    refused: both raise instead of running something else."""
+    """The mesh branch is not ported, and an unknown feature kind is
+    refused, at either batch size: both raise instead of running something
+    else.  (The batched branch is ported: tests/test_torch_batched.py.)"""
     clouds = [t_cloud.from_numpy(np.zeros((10, 3), np.float32), 256, device="cpu")] * 2
-    for kw, exc in ((dict(batch_size=2), NotImplementedError),
-                    (dict(stage1_features="sorted"), ValueError)):
-        cfg = t_pipe.PipelineConfig(**dict(KW, output_root=str(tmp_path), **kw))
-        with pytest.raises(exc):
-            t_pipe.run_stage1_fgr(cfg, clouds=clouds, n=2)
+    for batch_size in (1, 2):
+        for kw, mesh, exc in ((dict(), object(), NotImplementedError),
+                              (dict(stage1_features="sorted"), None, ValueError)):
+            cfg = t_pipe.PipelineConfig(**dict(KW, output_root=str(tmp_path),
+                                               **dict(kw, batch_size=batch_size)))
+            with pytest.raises(exc):
+                t_pipe.run_stage1_fgr(cfg, clouds=clouds, n=2, mesh=mesh)
 
 
 def test_stage1_ignores_fgr_iterations_as_pcr_tpu_does(stage1_runs, tmp_path):

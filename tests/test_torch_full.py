@@ -43,7 +43,7 @@ def runs(tmp_path_factory):
     staged = t_pipe.PipelineConfig(output_root=str(root / "staged"), batch_size=1, **KW)
     rel1 = t_pipe.run_stage1_fgr(staged, clouds=clouds, n=N)
     rel2 = t_pipe.run_stage2_mgicp(staged, init_poses=rel1, clouds=clouds, n=N)
-    # the default configuration (batch_size=2), which the staged runners refuse
+    # the default configuration (batch_size=2, which run_full does not read)
     cfg = t_pipe.PipelineConfig(output_root=str(root / "full"), **KW)
     assert cfg.batch_size == 2 and cfg.retry_failed
     metrics = t_pipe.PairMetrics()

@@ -172,3 +172,75 @@ def test_k6_ballot_walk_sums_in_row_order(case, q_tile, band):
 def test_k6_constants_are_covered():
     """fpfh.cu's team is the mirror's."""
     assert _constant("fpfh.cu", "kTeam") == TEAM
+
+
+def lazy_group_walk(q, r, splits: int, group: int):
+    """K7's walk for every query at once: the refs split into ranges of
+    ``nn1_split_rows(nr, splits)`` rows; in each range the groups of
+    ``group`` rows in ascending order (the tail padded with +inf), the
+    running minimum folded with each group's minimum and the group recorded
+    when it was strictly lower; the first row of the recorded group at the
+    minimum (the group's start when nothing beat 3e38); the ranges merged
+    strictly (an earlier range wins ties).  Returns (d2, row)."""
+    nq, nr = q.shape[0], r.shape[0]
+    per_split = nk.nn1_split_rows(nr, splits)
+    d_all = common.sqdist_tiles(q[None], r[None])[0]              # (nq, nr)
+    best, rows = None, None
+    for lo in range(0, nr, per_split):
+        hi = min(nr, lo + per_split)
+        n_groups = -(-(hi - lo) // group)
+        d = torch.full((nq, n_groups * group), float("inf"))
+        d[:, :hi - lo] = d_all[:, lo:hi]
+        g_min = d.view(nq, n_groups, group).amin(dim=-1)
+        b = torch.full((nq,), 3.0e38)
+        bg = torch.zeros(nq, dtype=torch.long)
+        for g in range(n_groups):
+            m = torch.minimum(b, g_min[:, g])
+            bg = torch.where(m < b, g, bg)
+            b = m
+        in_group = d.view(nq, n_groups, group)[torch.arange(nq), bg]    # (nq, group)
+        k = torch.where(in_group == b[:, None], torch.arange(group), group).amin(dim=-1)
+        row = lo + bg * group + torch.where(k < group, k, 0)
+        if best is None:
+            best, rows = b, row
+        else:
+            take = b < best
+            best, rows = torch.where(take, b, best), torch.where(take, row, rows)
+    return best, rows.to(torch.int32)
+
+
+# (nq, nr, splits): nr below a group, nr and nq off every multiple, one range
+# per 4096 rows, and the 16 ranges of chip_smoke's odd shape
+K7_CASES = [(37, 5, 1), (21, 16, 1), (100, 517, 1), (129, 1000, 3), (257, 4097, 7),
+            (1000, 3001, 16)]
+
+
+@pytest.mark.parametrize("nq,nr,splits", K7_CASES)
+def test_k7_lazy_group_walk_is_first_minimum(nq, nr, splits):
+    """The mirror of K7's group walk, split ranges and merge gives
+    ``nn1_reference``'s d2 and rows exactly on inputs full of ties:
+    duplicated refs, lattice ties, and equal nearest refs straddling a group
+    boundary, a range boundary and the last row."""
+    bounds = chip_smoke.k7_tie_bounds(nr, splits)
+    q_np, r_np = chip_smoke.k7_tie_inputs(nq, nr, bounds, seed=nq + nr)
+    q, r = torch.as_tensor(q_np), torch.as_tensor(r_np)
+    d_p, i_p = nk.nn1_reference(q, r)
+    d_m, i_m = lazy_group_walk(q, r, splits, nk.NN1_GROUP)
+    assert torch.equal(d_m, d_p) and torch.equal(i_m, i_p)
+    ties = chip_smoke.tie_rows(nr, bounds)
+    assert ties and i_m[nq - len(ties):].tolist() == [b - 1 for b in ties]
+    # the inputs do tie: every boundary query, and on the larger lattices
+    # many more queries, have their minimum at several rows
+    d_all = common.sqdist_tiles(q[None], r[None])[0]
+    tied = int(((d_all == d_p[:, None]).sum(-1) > 1).sum())
+    assert tied >= len(ties) and (nr < 500 or tied > nq // 4)
+
+
+def test_k7_constants_are_covered():
+    """nn1.cu's geometry is the wrapper's (its launch bounds' blocks a SM are
+    the resident blocks the splits fill), and its staging chunk holds whole
+    groups."""
+    assert (_constant("nn1.cu", "kThreads"), _constant("nn1.cu", "kQueries"),
+            _constant("nn1.cu", "kGroup"), _constant("nn1.cu", "kMinBlocks")) == (
+        nk.NN1_THREADS, nk.NN1_QUERIES, nk.NN1_GROUP, nk.NN1_BLOCKS_PER_SM)
+    assert _constant("nn1.cu", "kChunk") % nk.NN1_GROUP == 0

@@ -262,6 +262,28 @@ def test_nn1_kernel_matches_plain(cuda_rng, nq, nr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,nr", [(37, 5), (21, 16), (100, 517), (1000, 3001), (4099, 21504),
+                                   (21504, 21504)])
+def test_nn1_kernel_first_minimum_on_ties(cuda_rng, nq, nr):
+    """K7 on inputs full of exact ties (chip_smoke.k7_tie_inputs: duplicated
+    refs, lattice ties, equal nearest refs straddling a group boundary, the
+    boundary of the ref ranges the wrapper splits into and the last row):
+    d2 bit-equal and rows equal to the plain version, every boundary tie
+    resolved to its first row; nr below a group, nq and nr off every
+    multiple."""
+    dev = torch.device("cuda")
+    bounds = chip_smoke.k7_tie_bounds(nr, nn_kernels.nn1_splits(nq, nr, nn_kernels.nn1_slots(0)))
+    q, r = (torch.as_tensor(x, device=dev)
+            for x in chip_smoke.k7_tie_inputs(nq, nr, bounds, seed=nq + nr))
+    d_k, i_k = nn_kernels.nn1(q, r)
+    torch.cuda.synchronize()
+    d_p, i_p = nn_kernels.nn1_reference(q, r)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    ties = chip_smoke.tie_rows(nr, bounds)
+    assert i_k[nq - len(ties):].tolist() == [b - 1 for b in ties]
+
+
+@pytest.mark.cuda
 def test_nn1_kernel_refuses_float64_and_serves_knn(cuda_rng):
     """A float64 or non-contiguous CUDA input raises instead of running
     elsewhere; ``knn.nn1`` on CUDA tensors launches K7."""

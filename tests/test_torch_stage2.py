@@ -120,17 +120,16 @@ def test_stage2_writes_pose_file_contract(runs):
 
 
 def test_stage2_refuses_unported_branches(circuit, tmp_path):
-    """The batched and mesh branches are not ported: they raise instead of
-    running something else."""
+    """The mesh branch is not ported: at either batch size it raises instead
+    of running something else.  (Batch sizes above 1 run:
+    tests/test_torch_batched.py.)"""
     scans, _, init = circuit
     clouds = [t_cloud.from_numpy(s, 2048, device="cpu") for s in scans]
     kw = dict(KW, output_root=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        t_pipe.run_stage2_mgicp(t_pipe.PipelineConfig(**dict(kw, batch_size=2)),
-                                init_poses=init, clouds=clouds, n=N)
-    with pytest.raises(NotImplementedError):
-        t_pipe.run_stage2_mgicp(t_pipe.PipelineConfig(**kw), init_poses=init,
-                                clouds=clouds, n=N, mesh=object())
+    for batch_size in (1, 2):
+        with pytest.raises(NotImplementedError):
+            t_pipe.run_stage2_mgicp(t_pipe.PipelineConfig(**dict(kw, batch_size=batch_size)),
+                                    init_poses=init, clouds=clouds, n=N, mesh=object())
 
 
 def test_stage2_retry_ladder_rescues_like_pcr_tpu(tmp_path):
