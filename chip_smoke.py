@@ -77,8 +77,27 @@ Phases (any failure ends the run with a non-zero exit code):
                pair RETRY_PAIR thrown RETRY_OFFSET_M off: its status must
                start with "retried" and it must land within 3 cm / 0.2 deg;
                the other pairs as in phase 4.
+ 18. entry points — the 8 scans written as binary PCD in the NCLT layout
+               under a temporary reference root; pcr_tpu_torch.__main__.main
+               runs ``full --dataset NCLT --n 8`` (loading, run_full through
+               K1-K6; the main path as a user calls it): its stage-1 and
+               stage-2 pose files within 1e-6 of phase 10's, K1-K6 launched,
+               its wall beside phase 10's; run_full over
+               load_dataset_lazy("NCLT", range(8)) equal to the same poses and
+               its uploaded clouds equal to the in-memory ones; ``python -m
+               pcr_tpu_torch pair --src 1 --tgt 0`` as a subprocess within
+               3 cm / 0.2 deg; ``stage3 --relative`` the CLI's stage-2 poses,
+               all four methods within 5 cm aligned ATE; ``report`` (the
+               trajectory PLYs); models/gicp.gicp_loss_log (K7) on pair 0's
+               finest scale; the native PCD reader must have built;
+ 19. data plane — 901 paths (the 8 files and symlinks cycling over them, the
+               NCLT circuit's length): seconds to parse them (native,
+               threaded) and to pin them, the Python parser's seconds on the
+               8 files, plan_scale_caps' seconds and caps at the 5 scales,
+               LazyClouds' prefix upload ms a scan over all 901, and the eager
+               load_dataset's seconds and device MiB.
 The line before the last is the kernels' JSON record (``launches``: K1-K6
-from the run_full run, K7 from the brute GICP, the only path that runs it);
+from the CLI's ``full`` run of phase 18, K7 from the brute GICP);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
@@ -90,9 +109,12 @@ for K7 the time of torch.cdist (direct formula) and its row minimum.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1390,12 +1412,12 @@ def phase_stage3_nclt(dev) -> None:
         raise AssertionError(f"NCLT pose graph did not close the circuit: {info}, {c}")
 
 
-def phase_full(clouds, rel1, rel2, staged_s: float) -> dict:
+def phase_full(clouds, rel1, rel2, staged_s: float):
     """pipeline.run_full (stages 1 -> 3 in one window, the main path) on the
     default PipelineConfig (batch_size 2, retry ladder on): its stage-1 and
     stage-2 poses equal the staged runners', its stage-3 poses are finite,
     and K1-K6 are each launched.  Prints its wall beside the staged runners'
-    sum.  Returns the launch counts of the run."""
+    sum.  Returns the run's (launch counts, result, wall seconds)."""
     from pcr_tpu_torch import pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1419,7 +1441,208 @@ def phase_full(clouds, rel1, rel2, staged_s: float) -> dict:
         if not (np.isfinite(poses).all() and poses.shape == (N_SCANS, 4, 4)):
             raise AssertionError(f"run_full stage 3 {name} is not finite")
     check_launched(launches, MAIN_KERNELS, "run_full")
-    return launches
+    return launches, out, wall
+
+
+MAX_ENTRY_DIFF = 1e-6     # the CLI's and LazyClouds' poses against run_full's on the same points
+DATA_PLANE_SCANS = 901    # NCLT's circuit
+
+
+def write_scans(root: Path, scans) -> Path:
+    """The scans as binary PCD files s{i}.pcd in the NCLT layout under
+    ``root``; returns their directory."""
+    from pcr_tpu_torch.utils import pcd
+
+    d = root / "nuvens" / "nuvens_pre_processadas" / "NCLT"
+    d.mkdir(parents=True)
+    for i, s in enumerate(scans):
+        pcd.write_pcd(str(d / f"s{i}.pcd"), s)
+    return d
+
+
+@contextlib.contextmanager
+def reference_root(path: Path):
+    """The port's reference root pointed at ``path`` for the block."""
+    from pcr_tpu_torch.utils import poses_io
+
+    saved = poses_io.REFERENCE_ROOT
+    poses_io.REFERENCE_ROOT = str(path)
+    try:
+        yield
+    finally:
+        poses_io.REFERENCE_ROOT = saved
+
+
+def run_cli(argv) -> dict:
+    """pcr_tpu_torch.__main__.main(argv) in this process; its JSON summary."""
+    from pcr_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"python -m pcr_tpu_torch {' '.join(argv)} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def same_clouds(a, b) -> bool:
+    """The clouds' points and masks equal, tensor for tensor."""
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(getattr(x, k), getattr(y, k))
+                                    for x, y in zip(a, b) for k in ("points", "mask"))
+
+
+def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[dict, dict]:
+    """The entry points a user calls, on the circuit's scans written as PCD
+    files (see phase 18 in the module docstring).  Returns the launch counts
+    of the CLI's ``full`` run and of gicp_loss_log."""
+    import torch
+
+    from pcr_tpu_torch import native, pipeline
+    from pcr_tpu_torch.models import evaluate, gicp, multiscale
+    from pcr_tpu_torch.utils import cloud, poses_io, se3
+
+    if not native.available():
+        raise AssertionError("the native PCD reader did not build")
+    print(f"native PCD reader: {native.library_path()}")
+    with tempfile.TemporaryDirectory() as tmp, reference_root(Path(tmp) / "reference"):
+        write_scans(Path(tmp) / "reference", scans)
+        out_root = Path(tmp) / "out"
+        reset_launches()
+        summary, wall = synced(lambda: run_cli(["full", "--dataset", "NCLT", "--n", str(N_SCANS),
+                                                "--output-root", str(out_root)]))
+        launches = read_launches()
+        check_launched(launches, MAIN_KERNELS, "python -m pcr_tpu_torch full")
+        rel_dir = out_root / "relative_poses_FGR_GICP" / "NCLT"
+        d1 = float(np.abs(poses_io.load_relative_circuit(
+            str(out_root / "relative_poses_FGR" / "NCLT"), N_SCANS) - full_out["stage1"]).max())
+        d2 = float(np.abs(poses_io.load_relative_circuit(str(rel_dir), N_SCANS)
+                          - full_out["stage2"]).max())
+        print(f"CLI full: {wall:.3f} s (loading {N_SCANS} PCD files included; phase 10's "
+              f"run_full {full_wall:.3f} s); stage 1 within {d1:.3e}, stage 2 within {d2:.3e} "
+              f"of phase 10 (limit {MAX_ENTRY_DIFF:g}); launches {launches}; summary "
+              f"{ {k: v for k, v in summary.items() if k != 'config'} }")
+        if not (d1 < MAX_ENTRY_DIFF and d2 < MAX_ENTRY_DIFF
+                and summary["methods"] == sorted(STAGE3_METHODS)):
+            raise AssertionError(f"the CLI's poses differ from run_full's: {d1}, {d2}")
+
+        lazy = cloud.load_dataset_lazy("NCLT", range(N_SCANS))
+        if not same_clouds([lazy[i] for i in range(N_SCANS)], clouds):
+            raise AssertionError("LazyClouds' uploads differ from the in-memory clouds")
+        cfg = pipeline.PipelineConfig(dataset="NCLT", output_root=str(Path(tmp) / "lazy"))
+        out, wall_lazy = synced(lambda: pipeline.run_full(cfg, clouds=lazy, n=N_SCANS))
+        dl = max(float(np.abs(out[k] - full_out[k]).max()) for k in ("stage1", "stage2"))
+        print(f"run_full over LazyClouds: {wall_lazy:.3f} s, within {dl:.3e} of phase 10")
+        if not dl < MAX_ENTRY_DIFF:
+            raise AssertionError(f"run_full over LazyClouds is {dl} off the eager run")
+
+        env = dict(os.environ, PCR_REFERENCE_ROOT=str(Path(tmp) / "reference"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pcr_tpu_torch", "pair", "--dataset",
+                               "NCLT", "--src", "1", "--tgt", "0", "--output-root",
+                               str(Path(tmp) / "pair")], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m pcr_tpu_torch pair failed:\n{proc.stderr[-4000:]}")
+        pair = json.loads(proc.stdout.strip().splitlines()[-1])
+        e_t, e_r = pose_error(np.asarray(pair["T"]), gt[0])
+        print(f"python -m pcr_tpu_torch pair --src 1 --tgt 0: {e_t * 100:.3f} cm, {e_r:.4f} deg "
+              f"(limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg); its seconds "
+              f"{pair['seconds']}, process {time.perf_counter() - t0:.1f} s")
+        if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
+            raise AssertionError(f"pair (1,0) through the module entry is off: {e_t}, {e_r}")
+
+        s3_root = Path(tmp) / "stage3"
+        s3 = run_cli(["stage3", "--dataset", "NCLT", "--n", str(N_SCANS), "--relative",
+                      str(rel_dir), "--output-root", str(s3_root)])
+        truth = {"reference": se3.relative_to_absolute(gt),
+                 "standard": se3.relative_to_absolute_standard(gt)}
+        for name in s3["methods"]:
+            poses = poses_io.load_absolute_poses(
+                str(s3_root / f"absolute_poses_{name}" / "NCLT"), N_SCANS)
+            ate = evaluate.aligned_ate(poses, truth["standard" if name == "pose_graph"
+                                                    else "reference"])
+            print(f"CLI stage3 {name}: aligned ATE max {ate['max_m'] * 100:.3f} cm")
+            if not (np.isfinite(poses).all() and ate["max_m"] < MAX_STAGE3_ATE_M):
+                raise AssertionError(f"CLI stage3 {name} off ground truth: {ate}")
+        if s3["methods"] != sorted(STAGE3_METHODS):
+            raise AssertionError(f"CLI stage3 ran {s3['methods']}")
+        report = run_cli(["report", "--dataset", "NCLT", "--n", str(N_SCANS), "--output-root",
+                          str(s3_root)])
+        names = sorted(Path(p).name for p in report["artifacts"])
+        if not (names == sorted(f"traj_{m}.ply" for m in STAGE3_METHODS)
+                and all(Path(p).stat().st_size > 0 for p in report["artifacts"])):
+            raise AssertionError(f"CLI report wrote {names}")
+        print(f"CLI report: {names}")
+
+    scales = multiscale.create_scales(5)
+    caps = cloud.plan_scale_caps(clouds, scales)
+    src = multiscale.build_pyramid(clouds[1], n_scales=5, scale_capacities=caps)[-1]
+    tgt = multiscale.build_pyramid(clouds[0], n_scales=5, scale_capacities=caps)[-1]
+    reset_launches()
+    (res, log), wall_log = synced(lambda: gicp.gicp_loss_log(
+        src, tgt, multiscale.max_correspondence_distances(scales)[-1], full_out["stage2"][0]))
+    launches_log = read_launches()
+    e_t, e_r = pose_error(res.transformation.double().cpu().numpy(), gt[0])
+    rmse = log["inlier_rmse"].cpu().numpy()
+    print(f"gicp_loss_log (brute, K7) on pair 0's finest scale ({src.capacity} x "
+          f"{tgt.capacity} rows): {wall_log * 1e3:.1f} ms for {len(rmse)} iterations, "
+          f"inlier rmse {rmse[0]:.5f} -> {rmse[-1]:.5f} m, {e_t * 100:.3f} cm "
+          f"{e_r:.4f} deg; launches {launches_log}")
+    if not (launches_log["nn1"] == len(rmse) + 1 and np.isfinite(rmse).all()
+            and e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
+        raise AssertionError("gicp_loss_log on the card failed its checks")
+    torch.cuda.synchronize()
+    return launches, launches_log
+
+
+def phase_data_plane(scans) -> None:
+    """The data plane at NCLT scale (see phase 19 in the module docstring)."""
+    import torch
+
+    from pcr_tpu_torch import native
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.utils import cloud, pcd, poses_io
+
+    n = DATA_PLANE_SCANS
+    with tempfile.TemporaryDirectory() as tmp, reference_root(Path(tmp)):
+        d = write_scans(Path(tmp), scans)
+        for i in range(N_SCANS, n):
+            os.symlink(d / f"s{i % N_SCANS}.pcd", d / f"s{i}.pcd")
+        paths = [poses_io.reference_cloud_path("NCLT", i) for i in range(n)]
+        t0 = time.perf_counter()
+        pts, mask, _, counts = native.read_pcd_batch_padded(paths, CAPACITY, cloud.PAD_COORD)
+        t_parse = time.perf_counter() - t0
+        del pts, mask
+        t0 = time.perf_counter()
+        host = cloud.load_dataset_host("NCLT", range(n))
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(N_SCANS):
+            pcd.read_pcd(d / f"s{i}.pcd")
+        t_py = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caps = cloud.plan_scale_caps(host, multiscale.create_scales(5))
+        t_caps = time.perf_counter() - t0
+        print(f"data plane ({n} scans, {int(counts.sum())} points): native threaded parse "
+              f"{t_parse:.3f} s; load_dataset_host (parse + pin) {t_host:.3f} s, pinned "
+              f"{host[0].points.is_pinned()}; Python parser {t_py:.3f} s for {N_SCANS} files "
+              f"({t_py / N_SCANS * n:.1f} s at {n}); plan_scale_caps {t_caps:.3f} s -> {caps}")
+        if not (host[0].points.is_pinned() and counts.tolist()
+                == [len(scans[i % N_SCANS]) for i in range(n)]):
+            raise AssertionError("load_dataset_host's clouds are not pinned or miscounted")
+        lazy = cloud.LazyClouds(host)
+        _, t_up = synced(lambda: [lazy[i] for i in range(n)])
+        want = cloud.from_numpy(scans[(n - 1) % N_SCANS], CAPACITY)
+        if not same_clouds([lazy[n - 1]], [want]):
+            raise AssertionError("a LazyClouds upload differs from the in-memory cloud")
+        eager, t_eager = synced(lambda: cloud.load_dataset("NCLT", range(n)))
+        mib = sum(c.points.nbytes + c.mask.nbytes for c in eager) / 2**20
+        print(f"LazyClouds prefix upload: {t_up / n * 1e3:.4f} ms a scan over {n}; eager "
+              f"load_dataset {t_eager:.3f} s, {mib:.1f} MiB on the card")
+        del eager, lazy, host
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1454,7 +1677,8 @@ def main() -> int:
     rel12, _, _, wall12 = run_stage2(clouds, gt, rel1, "stage 1 -> 2", ("seeded by stage 1",),
                                      retry_failed=True)
     launches3, wall3 = phase_stage3(clouds, gt, rel12)
-    launches_main = phase_full(clouds, rel1, rel12, wall1 + wall12 + wall3)
+    launches_full, full_out, full_wall = phase_full(clouds, rel1, rel12,
+                                                    wall1 + wall12 + wall3)
     launches_b1, launches_b2 = phase_batched(clouds, gt, init, rel1, base, wall1, wall2)
     phase_stage3_nclt(dev)
     phase_stage1_split(clouds)
@@ -1462,9 +1686,12 @@ def main() -> int:
     launches7 = phase_brute(clouds, gt, init)
     phase_stage1_selection(clouds, gt)
     phase_retry(clouds, gt, init, base)
+    launches_main, launches_log = phase_entry_points(clouds, scans, gt, full_out, full_wall)
+    phase_data_plane(scans)
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
-          f"brute GICP {launches7}; run_full (the main path) {launches_main}")
+          f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "
+          f"python -m pcr_tpu_torch full (the main path) {launches_main}")
     for rec in records:
         rec["launches"] = (launches7 if rec["name"] in BRUTE_KERNELS
                            else launches_main)[rec["name"]]

@@ -1,13 +1,16 @@
 """pcr_tpu_torch — the PyTorch/CUDA port of ``pcr_tpu`` for NVIDIA Hopper.
 
 The JAX package ``pcr_tpu`` stays the reference; this package mirrors its
-module paths and function names.  Ported so far: stages 1, 2 and 3 and
-``pipeline.run_full`` (stages 1 -> 3 in one window, the main path); the
-staged runners at every ``batch_size`` (stage 1's batched branch, one card,
-at ``batch_size > 1``; stage 2 streams at every batch size).  The seven Pallas kernels those paths run (K1-K7) are
-hand-written CUDA kernels here (``csrc/``, bound in ``ops/kernels/``); on
-CPU tensors every wrapper runs its plain PyTorch version instead.  Clouds
-are built on the CUDA card unless the caller asks for the CPU.
+module paths and function names.  Ported: the entry points
+(``python -m pcr_tpu_torch stage1|stage2|stage3|full|pair|report``, dataset
+loading through the native PCD reader of ``native/``, ``LazyClouds``,
+``pipeline.run_pair``, ``viz``), stages 1, 2 and 3 and ``pipeline.run_full``
+(stages 1 -> 3 in one window, the main path), and the staged runners at
+every ``batch_size`` on one card.  The seven Pallas kernels those paths run
+(K1-K7) are hand-written CUDA kernels here (``csrc/``, bound in
+``ops/kernels/``); on CPU tensors every wrapper runs its plain PyTorch
+version instead.  Clouds and loaded scans go to the CUDA card unless the
+caller asks for the CPU.  Not ported: the device meshes (``parallel/``).
 
 Importing this package never imports ``jax`` or ``pcr_tpu``.
 """

@@ -348,3 +348,37 @@ def _gicp_band_sorted(
         fitness, rmse, n_corr = _metrics(valid, d2, src_mask_s)
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.tensor(iters, dtype=torch.int32, device=dev))
+
+
+def gicp_loss_log(source: Cloud, target: Cloud, max_corr_dist, T_init, loss: str = "l1",
+                  gm_k: float = 1.0, max_iteration: int = 100, corr_method: str = "brute"):
+    """Diagnostic GICP run with a per-iteration loss log (the reference plots
+    Open3D's ``loss_log``, ``plot_rmse_vs_iteracoes``).
+
+    Runs the full iteration budget, a fixed trip count with no early exit and
+    no host read, and returns ``(RegistrationResult, log)`` with ``log =
+    {"fitness": (I,), "inlier_rmse": (I,)}``, each entry measured at the pose
+    its Gauss-Newton step started from.  ``corr_method``: 'brute', the exact
+    1-NN (``knn.nn1``, kernel K7 on the card), the default here; pcr_tpu's
+    default 'grid' is exact within max_dist as well, but its hash grid is not
+    ported and raises.  Not the hot path: use ``registration_gicp``."""
+    if corr_method == "grid":
+        raise NotImplementedError("corr_method='grid': ops/grid_nn is not ported")
+    if corr_method != "brute":
+        raise ValueError(f"unknown corr_method {corr_method!r}")
+    max_dist = float(np.float32(max_corr_dist))
+    T = torch.as_tensor(T_init, dtype=torch.float32, device=source.device)
+    src_cov = _regularized_covariances(source)
+    tgt_cov = _regularized_covariances(target)
+    fits, rmses = [], []
+    for _ in range(max_iteration):
+        T, fit, rmse, _ = gicp_step(source.points, src_cov, source.mask, target.points, tgt_cov,
+                                    target.mask, T, max_dist, loss=loss, gm_k=gm_k)
+        fits.append(fit)
+        rmses.append(rmse)
+    _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask, T,
+                                  max_dist)
+    fitness, rmse, n_corr = _metrics(valid, d2, source.mask)
+    res = RegistrationResult(T, fitness, rmse, n_corr,
+                             torch.tensor(max_iteration, dtype=torch.int32, device=source.device))
+    return res, {"fitness": torch.stack(fits), "inlier_rmse": torch.stack(rmses)}

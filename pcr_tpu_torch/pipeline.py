@@ -14,9 +14,13 @@ them, so the pipeline is restartable at stage granularity.
   stage 3  global refinement: LUM / SLERP / SLERP+LUM (host float64) and the
            pose-graph LM over band-NN information matrices (on the card)
 
-Not ported yet: the mesh branches of the staged runners (``mesh=``),
-dataset loading and the CLI.  Each raises ``NotImplementedError`` where a run
-would need it.
+Each runner takes the clouds it is given (a list of port Clouds, or a
+``cloud.LazyClouds``, on one device, where the run happens) or, with
+``clouds=None``, loads the dataset's PCD scans onto the CUDA card
+(``_load_circuit_clouds``; streamed through a ``LazyClouds`` above 32 scans).
+``run_pair`` registers one scan pair; ``python -m pcr_tpu_torch`` is the CLI
+over all of them.  Not ported yet: the mesh branches (``mesh=`` of the staged
+runners, ``point_mesh=`` of ``run_pair``), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -115,6 +119,27 @@ class PairMetrics:
         return sum(1 for r in rows if r[key] > gate) / len(rows)
 
 
+def _load_circuit_clouds(cfg: PipelineConfig, indices=None, device=None):
+    """The dataset loader of the circuit runners, onto ``device`` (default:
+    the CUDA card).  Large circuits stream: every scan is parsed on the host
+    and uploaded lazily inside the compute loop (``cloud.LazyClouds``)
+    instead of ~380 MB of padded NCLT scans up front."""
+    idx = list(indices) if indices is not None else list(
+        range(poses_io.CIRCUIT_SIZES[cfg.dataset]))
+    if len(idx) > 32:
+        return cloud_mod.load_dataset_lazy(cfg.dataset, indices=idx, device=device)
+    return cloud_mod.load_dataset(cfg.dataset, indices=idx, device=device)
+
+
+def _buckets(clouds, n: int, granularity: int) -> list[int]:
+    """Every scan's capacity bucket, read up front: on a device cloud each
+    read waits for the device, so none may fall inside a pipelined loop.  A
+    LazyClouds is read from its host clouds, with no upload."""
+    if isinstance(clouds, cloud_mod.LazyClouds):
+        clouds = list(clouds)
+    return [cloud_mod.bucket_capacity(clouds[i], granularity) for i in range(n)]
+
+
 # Pairs stacked into one batched evaluation call (pcr_tpu's max(batch_size, 4)
 # at its default batch_size): on one card the pairs of a call run one after
 # another, so the chunk bounds the stacked copies, not the results.
@@ -156,24 +181,23 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     """FGR over all circuit pairs; returns (n, 4, 4) f64 relative poses and
     writes them (``relative_poses_FGR``) and the metrics.
 
-    ``clouds`` is a list of port Clouds, all on one device, which is where
-    the run happens.  With ``batch_size`` 1 each scan's features (normals +
-    FPFH) are computed once at its own capacity bucket and shared by the two
-    pairs it serves; a pair runs at the larger of its two buckets.  With
-    ``batch_size`` > 1 pairs run in chunks (``_run_stage1_fgr_batched``)."""
+    ``clouds`` (default: the dataset's scans, loaded onto the card) are on
+    one device, which is where the run happens.  With ``batch_size`` 1 each
+    scan's features (normals + FPFH) are computed once at its own capacity
+    bucket and shared by the two pairs it serves; a pair runs at the larger
+    of its two buckets.  With ``batch_size`` > 1 pairs run in chunks
+    (``_run_stage1_fgr_batched``)."""
     if mesh is not None:
         raise NotImplementedError("the mesh branch (mesh=) is not ported")
     if cfg.stage1_features not in ("banded", "selection"):
         raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
-    if clouds is None:
-        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if clouds is None:
+        clouds = _load_circuit_clouds(cfg, range(n))
     metrics = metrics if metrics is not None else PairMetrics()
     if cfg.batch_size > 1:
         return _run_stage1_fgr_batched(cfg, clouds, n, metrics)
-    # every bucket up front: each read waits for the device, so none may
-    # fall inside the pipelined loop
-    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    buckets = _buckets(clouds, n, cfg.bucket_granularity)
     feat_cache: dict[int, tuple] = {}
 
     def features(i):
@@ -265,7 +289,7 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
     and each pair's ``seconds`` is its chunk's wall over its real pairs."""
     B = cfg.batch_size
     opts = fgr_mod.default_options(clouds[0], clouds[0], cfg.voxel_size)
-    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    buckets = _buckets(clouds, n, cfg.bucket_granularity)
     out = np.zeros((n, 4, 4))
     ckpt = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
     for start in range(0, n, B):
@@ -353,8 +377,9 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
                      metrics: PairMetrics | None = None) -> np.ndarray:
     """M-GICP refinement of the stage-1 poses over all circuit pairs.
 
-    ``clouds`` is a list of port Clouds (all on one device, which is where
-    the run happens); ``init_poses`` (n, 4, 4) or the stage-1 pose files.
+    ``clouds`` (default: the dataset's scans, loaded onto the card) are on
+    one device, which is where the run happens; ``init_poses`` (n, 4, 4) or
+    the stage-1 pose files.
     Pairs stream one at a time over per-cloud pyramids that are built once
     and shared by the two pairs each cloud serves; pairs whose fitness lands
     at/below the retry gate are collected and re-registered by the retry
@@ -368,9 +393,9 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     """
     if mesh is not None:
         raise NotImplementedError("the mesh branch (mesh=) is not ported")
-    if clouds is None:
-        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if clouds is None:
+        clouds = _load_circuit_clouds(cfg, range(n))
     if init_poses is None:
         init_poses = poses_io.load_relative_circuit(cfg.out_dir("relative_poses_FGR"), n)
     metrics = metrics if metrics is not None else PairMetrics()
@@ -447,6 +472,72 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     return out
 
 
+def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str = "fgr",
+             metrics: PairMetrics | None = None, point_mesh=None, device=None) -> dict:
+    """Register ONE scan pair end to end: [FGR ->] M-GICP -> information matrix.
+
+    The single-pair workflow for datasets whose circuit is incomplete on disk
+    (Courtyard ships 2 of 8 scans).  The two scans are loaded onto ``device``
+    (default: the CUDA card).  ``init``: 'fgr' runs stage-1 FGR first, each
+    scan featurized at its own capacity bucket and the pair padded to the
+    larger one, seeded with fgr_seed + src_i; 'fixture' takes the seed from
+    the shipped absolute FGR_GICP fixtures (inv(A_tgt) @ A_src); or a 4x4
+    array.  Writes ``pose_{src}_{tgt}.txt`` and ``metrics/pair_{src}_{tgt}.jsonl``.
+    Returns {"src", "tgt", "dataset", ["fgr_fitness"], "T", "fitness", "rmse",
+    "mgicp_seconds", "seconds", "info_trace"}.  ``point_mesh`` (pcr_tpu's
+    point-sharded refinement) is not ported and raises."""
+    if point_mesh is not None:
+        raise NotImplementedError("point_mesh=: the point-sharded refinement (parallel/, "
+                                  "ROADMAP Queue 1 item 7) is not ported")
+    metrics = metrics if metrics is not None else PairMetrics()
+    src_c, tgt_c = cloud_mod.load_dataset(cfg.dataset, indices=[src_i, tgt_i], device=device)
+    out: dict = {"src": src_i, "tgt": tgt_i, "dataset": cfg.dataset}
+    t0 = time.time()
+    if isinstance(init, str) and init == "fgr":
+        bs = cloud_mod.compact(src_c, cloud_mod.bucket_capacity(src_c))
+        bt = cloud_mod.compact(tgt_c, cloud_mod.bucket_capacity(tgt_c))
+        if cfg.stage1_features == "banded":
+            bs_f, feat_s = fpfh_sorted.fgr_features_sorted(bs, cfg.voxel_size,
+                                                           band=cfg.stage1_band)
+            bt_f, feat_t = fpfh_sorted.fgr_features_sorted(bt, cfg.voxel_size,
+                                                           band=cfg.stage1_band)
+        else:
+            bs_f, feat_s = fgr_mod.fgr_features(bs, cfg.voxel_size)
+            bt_f, feat_t = fgr_mod.fgr_features(bt, cfg.voxel_size)
+        B = max(bs_f.capacity, bt_f.capacity)
+        bs_f, feat_s, bt_f, feat_t = _pad_pair(bs_f, feat_s, bt_f, feat_t, B)
+        res_fgr = fgr_mod.registration_fgr(
+            bs_f, bt_f, feat_s, feat_t, fgr_mod.default_options(bs_f, bt_f, cfg.voxel_size),
+            seed=cfg.fgr_seed + src_i)
+        T0 = res_fgr.transformation.double().cpu().numpy()
+        out["fgr_fitness"] = float(res_fgr.fitness)
+        metrics.add("fgr", src_i, tgt_i, float(res_fgr.fitness), float(res_fgr.inlier_rmse),
+                    time.time() - t0)
+    elif isinstance(init, str) and init == "fixture":
+        A = poses_io.load_reference_absolute(cfg.dataset)
+        T0 = np.linalg.inv(A[tgt_i]) @ A[src_i]
+    else:
+        T0 = np.asarray(init, np.float64)
+    caps = cfg.scale_capacities
+    if caps == "auto":
+        caps = cloud_mod.plan_scale_caps([src_c, tgt_c], ms_mod.create_scales(cfg.mgicp_scales))
+    t1 = time.time()
+    res = ms_mod.multiscale_gicp(src_c, tgt_c, np.asarray(T0, np.float32),
+                                 n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations,
+                                 scale_capacities=caps)
+    T = res.transformation.double().cpu().numpy()
+    out.update(T=T.tolist(), fitness=float(res.fitness), rmse=float(res.inlier_rmse),
+               mgicp_seconds=round(time.time() - t1, 3), seconds=round(time.time() - t0, 3))
+    metrics.add("mgicp", src_i, tgt_i, float(res.fitness), float(res.inlier_rmse),
+                time.time() - t1)
+    info = eval_mod.information_matrix(tgt_c, src_c, cfg.voxel_size,
+                                       se3.invert(T).astype(np.float32))
+    out["info_trace"] = float(torch.trace(info))
+    poses_io.save_pose(os.path.join(cfg.out_dir("relative_poses_FGR_GICP"),
+                                    f"pose_{src_i}_{tgt_i}.txt"), T)
+    metrics.save(os.path.join(cfg.out_dir("metrics"), f"pair_{src_i}_{tgt_i}.jsonl"))
+    return out
+
 
 def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
              metrics: PairMetrics | None = None,
@@ -463,22 +554,22 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
     checkpoints every 50 pairs, per-stage metrics jsonl, ``gate_fitness`` on
     every stage-2 row.  Then the retry ladder over the failed pairs, the
     stage-1 outlier flags and stage 3.  ``batch_size`` is not read (as in
-    the JAX package), so the default configuration runs.  ``clouds`` is a
-    list of port Clouds on one device, where the run happens; loading the
-    dataset is not ported.  Returns {"stage1", "stage2", "stage3"}."""
+    the JAX package), so the default configuration runs.  ``clouds``
+    (default: the dataset's scans, loaded onto the card) are on one device,
+    where the run happens; on a ``LazyClouds`` each pair also starts the
+    uploads of the next two scans.  Returns {"stage1", "stage2", "stage3"}."""
     if cfg.stage1_features not in ("banded", "selection"):
         raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
-    if clouds is None:
-        raise NotImplementedError("loading the reference scans is not ported; pass clouds")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if clouds is None:
+        clouds = _load_circuit_clouds(cfg, range(n))
     metrics = metrics if metrics is not None else PairMetrics()
     pairs = circuit_pairs(n)
     caps = cfg.scale_capacities
     if caps == "auto":
         caps = cloud_mod.plan_scale_caps(clouds, ms_mod.create_scales(cfg.mgicp_scales))
     eval_dist = 2 * cfg.voxel_size
-    # every bucket up front: each read waits for the device
-    buckets = [cloud_mod.bucket_capacity(clouds[i], cfg.bucket_granularity) for i in range(n)]
+    buckets = _buckets(clouds, n, cfg.bucket_granularity)
     feat_cache: dict[int, tuple] = {}
     pyr_cache: dict[int, tuple] = {}
 
@@ -539,6 +630,11 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
             save_metrics()
 
     for k, (s, t) in enumerate(pairs):
+        if isinstance(clouds, cloud_mod.LazyClouds):
+            # start the next two scans' non-blocking uploads now, so they run
+            # ahead of the pairs that need them (the LRU keeps at least 8)
+            clouds[(s + 1) % n]
+            clouds[(s + 2) % n]
         (src_f, feat_src), pyr_s = prep(s)
         (tgt_f, feat_tgt), pyr_t = prep(t)
         B = max(src_f.capacity, tgt_f.capacity)
@@ -622,7 +718,7 @@ def run_stage3_global(cfg: PipelineConfig, relative_poses: np.ndarray | None = N
         results["SLERP_LUM"] = closed_form.refine_slerp_lum(relative_poses)
     if "pose_graph" in methods:
         if clouds is None:
-            raise NotImplementedError("loading the reference scans is not ported; pass clouds")
+            clouds = _load_circuit_clouds(cfg, range(n))
         infos = information_matrices(cfg, clouds, relative_poses)
         graph = pg_mod.build_circuit_graph(se3.relative_to_absolute_standard(relative_poses),
                                            relative_poses, infos, device=infos.device)

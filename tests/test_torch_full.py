@@ -134,6 +134,10 @@ def test_run_full_retry_pass_matches_the_staged_ladder(runs):
                                [r["gate_fitness"] for r in rows_s], atol=1e-6)
 
 
-def test_run_full_needs_clouds():
-    with pytest.raises(NotImplementedError):
-        t_pipe.run_full(t_pipe.PipelineConfig(**KW), n=N)
+def test_run_full_needs_clouds(tmp_path, monkeypatch):
+    """Without clouds run_full loads the dataset's scans (it no longer
+    raises NotImplementedError): with none under the reference root, the
+    loader's FileNotFoundError names the indices on disk."""
+    monkeypatch.setattr(poses_io, "REFERENCE_ROOT", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=r"available indices: \[\]"):
+        t_pipe.run_full(t_pipe.PipelineConfig(output_root=str(tmp_path), **KW), n=N)

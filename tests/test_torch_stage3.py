@@ -171,13 +171,33 @@ def test_evaluate_circuit_and_against(circuit, clouds):
         np.testing.assert_allclose(got, want, atol=1e-12)
 
 
-def test_stage3_pose_graph_needs_clouds(circuit, tmp_path):
-    """Dataset loading is not ported: the pose graph without clouds raises,
-    the closed forms alone run from the stage-2 pose files."""
-    _, rel = circuit
-    cfg = t_pipe.PipelineConfig(output_root=str(tmp_path), **KW)
+def test_stage3_pose_graph_needs_clouds(circuit, runs, tmp_path, monkeypatch):
+    """The pose graph without clouds loads the dataset's scans (written here
+    as binary PCD under a temporary reference root; the loader is asked for
+    the CPU) and lands on the poses of the run given the same clouds; the
+    closed forms alone run from the stage-2 pose files and load nothing."""
+    from pcr_tpu_torch.utils import pcd
+
+    scans, rel = circuit
+    d = tmp_path / "nuvens" / "nuvens_pre_processadas" / "Facade"
+    d.mkdir(parents=True)
+    for i, s in enumerate(scans):
+        pcd.write_pcd(str(d / f"s{i}.pcd"), s)
+    monkeypatch.setattr(poses_io, "REFERENCE_ROOT", str(tmp_path))
+    monkeypatch.setitem(t_cloud.BUCKETS, "Facade", 1024)
+    loads = []
+    load = t_pipe._load_circuit_clouds
+
+    def load_on_cpu(cfg, indices=None, device=None):
+        loads.append(list(indices))
+        return load(cfg, indices, device="cpu")
+
+    monkeypatch.setattr(t_pipe, "_load_circuit_clouds", load_on_cpu)
+    cfg = t_pipe.PipelineConfig(output_root=str(tmp_path / "out"), **KW)
     poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), rel)
-    with pytest.raises(NotImplementedError):
-        t_pipe.run_stage3_global(cfg, n=N)
     out = t_pipe.run_stage3_global(cfg, n=N, methods=("LUM",))
     np.testing.assert_allclose(out["LUM"], se3.relative_to_absolute(rel), atol=0.05)
+    assert not loads
+    out = t_pipe.run_stage3_global(cfg, n=N)
+    assert loads == [list(range(N))]
+    np.testing.assert_allclose(out["pose_graph"], runs[1]["pose_graph"], atol=1e-9)
