@@ -95,7 +95,28 @@ Phases (any failure ends the run with a non-zero exit code):
                threaded) and to pin them, the Python parser's seconds on the
                8 files, plan_scale_caps' seconds and caps at the 5 scales,
                LazyClouds' prefix upload ms a scan over all 901, and the eager
-               load_dataset's seconds and device MiB.
+               load_dataset's seconds and device MiB;
+ 20. mesh, one rank — a world of one rank over NCCL in this process
+               (parallel.mesh.make_pair_mesh(1)): run_stage1_fgr and
+               run_stage2_mgicp with mesh= at batch_size=2 against phase 11's
+               batched runners (stage 1 within 1e-5, stage 2 within 1e-6),
+               K1-K6 launched by them; stage 2 again from the mesh's stage-1
+               poses; run_pair(point_mesh=make_point_mesh(1)) against phase
+               18's ``pair`` (1e-5); ``full --devices 1 --batch-size 2``
+               through the CLI, its pose files those of the mesh runners
+               (1e-6); distributed_global_optimization on the 8-node circuit
+               graph against global_optimization (5e-4); walls beside the
+               batched runners';
+ 21. mesh, two ranks — two processes spawned on this card, each in a gloo
+               group of 2 (CUDA tensors exchanged through host memory):
+               stage 1 -> 2 on a (pairs=2) mesh, the poses of phase 20's
+               mesh runners (1e-5); stage 2 on a (pairs=1, points=2) mesh
+               (every scale's GICP over the cached pyramids point-sharded)
+               within 5e-5 of phase 11's batched poses and 3 cm / 0.2 deg
+               of ground truth, and sharded_mgicp_2d on the same pairs
+               within 1e-6 of it where no retry ran;
+               distributed_global_optimization on the 2 ranks against phase
+               20's (5e-4).  A rank that fails or overruns fails the run.
 The line before the last is the kernels' JSON record (``launches``: K1-K6
 from the CLI's ``full`` run of phase 18, K7 from the brute GICP);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
@@ -1269,7 +1290,7 @@ def phase_batched(clouds, gt, init, rel1, rel2, wall1: float, wall2: float):
     FGR errors (the streamed branch, ladder on) within 3 cm / 0.2 deg and
     K1-K3 launched.  Prints both warm walls beside the streamed ones (stage 1
     and phase 4's stage 2) and the largest pose difference from them.
-    Returns the launch counts of both warm runs."""
+    Returns the launch counts of both warm runs and their poses and walls."""
     out1, launches1, b1 = phase_stage1(clouds, gt, batch_size=2, label="stage 1 (batch 2)")
     out2, _, launches2, b2 = run_stage2(clouds, gt, init, "stage 2 (batch 2)",
                                         ("cold", "warm"), retry_failed=True, batch_size=2)
@@ -1277,7 +1298,7 @@ def phase_batched(clouds, gt, init, rel1, rel2, wall1: float, wall2: float):
           f"poses within {float(np.abs(out1 - rel1).max()):.3e} of the streamed; stage 2 warm "
           f"{b2:.3f} s (streamed {wall2:.3f} s), poses within "
           f"{float(np.abs(out2 - rel2).max()):.3e} of the streamed")
-    return launches1, launches2
+    return launches1, launches2, dict(rel1=out1, rel2=out2, wall1=b1, wall2=b2)
 
 
 STAGE3_METHODS = ("LUM", "SLERP", "SLERP_LUM", "pose_graph")
@@ -1496,7 +1517,7 @@ def same_clouds(a, b) -> bool:
 def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[dict, dict]:
     """The entry points a user calls, on the circuit's scans written as PCD
     files (see phase 18 in the module docstring).  Returns the launch counts
-    of the CLI's ``full`` run and of gicp_loss_log."""
+    of the CLI's ``full`` run and of gicp_loss_log, and the ``pair`` result."""
     import torch
 
     from pcr_tpu_torch import native, pipeline
@@ -1594,7 +1615,7 @@ def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[d
             and e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
         raise AssertionError("gicp_loss_log on the card failed its checks")
     torch.cuda.synchronize()
-    return launches, launches_log
+    return launches, launches_log, pair
 
 
 def phase_data_plane(scans) -> None:
@@ -1645,6 +1666,243 @@ def phase_data_plane(scans) -> None:
         torch.cuda.empty_cache()
 
 
+MAX_MESH_STAGE1 = 1e-5    # stage 1 on a mesh: the GNC batched over a rank's block, not the chunk
+MAX_MESH_STAGE2 = 1e-6    # stage 2 on a mesh: each pair runs the streamed loop's operations
+MAX_MESH_PAIR = 1e-5      # run_pair on a point mesh of one rank against phase 18's pair
+MAX_MESH_PG = 5e-4        # the edge-sharded pose graph against the single-device solve
+MAX_MESH_2D = 5e-5        # stage 2 on a (pairs, points) mesh against the batched poses
+MESH_RANK_LIMIT_S = 600   # phase 21's ranks, spawn to exit
+
+
+def mesh_runners(clouds, mesh, root: str, init, label: str) -> dict:
+    """run_stage1_fgr and run_stage2_mgicp (retry ladder on) with ``mesh`` at
+    batch_size 2: stage 2 from ``init`` and again from the mesh's stage-1
+    poses.  Returns the poses, walls and launch counts."""
+    from pcr_tpu_torch import pipeline
+
+    cfg1 = dataclasses.replace(stage1_config(f"{root}/stage1"), batch_size=2)
+    reset_launches()
+    rel1, wall1 = synced(lambda: pipeline.run_stage1_fgr(cfg1, clouds=clouds, n=N_SCANS,
+                                                         mesh=mesh))
+    launches1 = read_launches()
+
+    def stage2(init_poses, name):
+        cfg = dataclasses.replace(stage2_config(f"{root}/{name}"), retry_failed=True,
+                                  batch_size=2)
+        metrics = pipeline.PairMetrics()
+        out = pipeline.run_stage2_mgicp(cfg, init_poses=init_poses.copy(), clouds=clouds,
+                                        n=N_SCANS, mesh=mesh, metrics=metrics)
+        return out, [r["status"] for r in metrics.rows]
+
+    reset_launches()
+    (rel2, status2), wall2 = synced(lambda: stage2(init, "stage2"))
+    launches2 = read_launches()
+    (rel12, _), wall12 = synced(lambda: stage2(rel1, "stage12"))
+    print(f"{label}: stage 1 {wall1:.3f} s, stage 2 {wall2:.3f} s, stage 1 -> 2 "
+          f"{wall1 + wall12:.3f} s; launches stage 1 {launches1}, stage 2 {launches2}; "
+          f"stage-2 statuses {status2}", flush=True)
+    return dict(rel1=rel1, rel2=rel2, rel12=rel12, wall1=wall1, wall2=wall2, wall12=wall12,
+                launches1=launches1, launches2=launches2)
+
+
+def circuit_graph(clouds, rel):
+    """Stage 3's pose graph of the circuit (K1 information matrices), as
+    run_stage3_global builds it."""
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.utils import se3
+
+    infos = pipeline.information_matrices(stage2_config(""), clouds, rel)
+    return pose_graph.build_circuit_graph(se3.relative_to_absolute_standard(rel), rel, infos,
+                                          device=infos.device)
+
+
+def phase_mesh_one_rank(clouds, scans, init, batched: dict, pair: dict) -> dict:
+    """Phase 20 (module docstring): the mesh branches in a world of one rank
+    over NCCL in this process.  Returns what phase 21 is held to."""
+    import torch.distributed as dist
+
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.parallel import distributed_pg
+    from pcr_tpu_torch.parallel import mesh as mesh_mod
+    from pcr_tpu_torch.utils import poses_io
+
+    mesh = mesh_mod.make_pair_mesh(1)
+    print(f"mesh, one rank: {mesh}, backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        got = mesh_runners(clouds, mesh, tmp, init, "mesh runners (pairs=1)")
+        d1 = float(np.abs(got["rel1"] - batched["rel1"]).max())
+        d2 = float(np.abs(got["rel2"] - batched["rel2"]).max())
+        print(f"mesh runners against phase 11's batched runners: stage 1 within {d1:.3e} "
+              f"(limit {MAX_MESH_STAGE1:g}; batched {batched['wall1']:.3f} s), stage 2 within "
+              f"{d2:.3e} (limit {MAX_MESH_STAGE2:g}; batched {batched['wall2']:.3f} s)")
+        if not (d1 < MAX_MESH_STAGE1 and d2 < MAX_MESH_STAGE2):
+            raise AssertionError(f"the mesh runners differ from the batched ones: {d1}, {d2}")
+        check_launched(got["launches1"], STAGE1_KERNELS, "stage 1 on a mesh")
+        check_launched(got["launches2"], STAGE2_KERNELS, "stage 2 on a mesh")
+
+        with reference_root(Path(tmp) / "reference"):
+            write_scans(Path(tmp) / "reference", scans)
+            cfg = pipeline.PipelineConfig(dataset="NCLT", output_root=f"{tmp}/pair")
+            reset_launches()
+            out, wall_pair = synced(lambda: pipeline.run_pair(
+                cfg, 1, 0, point_mesh=mesh_mod.make_point_mesh(1)))
+            launches_pair = read_launches()
+            dp = float(np.abs(np.asarray(out["T"]) - np.asarray(pair["T"])).max())
+            print(f"run_pair(point_mesh=1 rank): {wall_pair:.3f} s (phase 18's pair: "
+                  f"{pair['seconds']} s in its process), within {dp:.3e} of phase 18's pair "
+                  f"(limit {MAX_MESH_PAIR:g}); point_mesh {out['point_mesh']}; launches "
+                  f"{launches_pair}")
+            if not (dp < MAX_MESH_PAIR and out["point_mesh"] == 1):
+                raise AssertionError(f"run_pair on a point mesh is {dp} off phase 18's pair")
+
+            reset_launches()
+            summary, wall_cli = synced(lambda: run_cli(
+                ["full", "--dataset", "NCLT", "--n", str(N_SCANS), "--devices", "1",
+                 "--batch-size", "2", "--output-root", f"{tmp}/cli"]))
+            launches_cli = read_launches()
+            dc = max(float(np.abs(poses_io.load_relative_circuit(
+                f"{tmp}/cli/{stage}/NCLT", N_SCANS) - got[key]).max())
+                for stage, key in (("relative_poses_FGR", "rel1"),
+                                   ("relative_poses_FGR_GICP", "rel12")))
+            print(f"CLI full --devices 1 --batch-size 2: {wall_cli:.3f} s (stages 1 -> 3, "
+                  f"loading included), pose files within {dc:.3e} of the mesh runners "
+                  f"(limit {MAX_ENTRY_DIFF:g}); mesh {summary['mesh']}; launches {launches_cli}")
+            if not (dc < MAX_ENTRY_DIFF and summary["mesh"] == {"pairs": 1}
+                    and summary["methods"] == sorted(STAGE3_METHODS)):
+                raise AssertionError(f"the CLI's full --devices 1 differs: {dc}, {summary}")
+            check_launched(launches_cli, MAIN_KERNELS, "CLI full --devices 1")
+
+    graph = circuit_graph(clouds, got["rel12"])
+    voxel = stage2_config("").voxel_size
+    single, wall_single = synced(lambda: pose_graph.global_optimization(
+        graph, max_correspondence_distance=2 * voxel))
+    shared, wall_dist = synced(lambda: distributed_pg.distributed_global_optimization(
+        mesh, graph, max_correspondence_distance=2 * voxel))
+    dg = float((shared.nodes - single.nodes).abs().max())
+    print(f"distributed_global_optimization (1 rank): {wall_dist:.3f} s, global_optimization "
+          f"{wall_single:.3f} s; nodes within {dg:.3e} (limit {MAX_MESH_PG:g})")
+    if not dg < MAX_MESH_PG:
+        raise AssertionError(f"the distributed pose graph is {dg} off the single-device one")
+    dist.destroy_process_group()
+    return dict(rel1=got["rel1"], rel12=got["rel12"], wall1=got["wall1"],
+                wall12=got["wall12"], pg_nodes=shared.nodes.cpu().numpy(),
+                graph={k: v.cpu().numpy() for k, v in graph._asdict().items()})
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One of phase 21's ranks: a gloo group of ``world`` on this card."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.parallel import distributed_pg, point_sharding
+    from pcr_tpu_torch.parallel import mesh as mesh_mod
+    from pcr_tpu_torch.utils import cloud
+
+    with open(f"{tmp}/inputs.pkl", "rb") as fh:
+        x = pickle.load(fh)
+    clouds = [cloud.from_numpy(sc, CAPACITY) for sc in x["scans"]]
+    pairs = mesh_mod.make_pair_mesh(world)
+    got = mesh_runners(clouds, pairs, f"{tmp}/pairs", x["init"],
+                       f"rank {rank}: mesh runners (pairs={world})")
+    cfg = dataclasses.replace(stage2_config(f"{tmp}/points"), retry_failed=True, batch_size=2)
+    reset_launches()
+    mesh_2d = mesh_mod.make_2d_mesh(1, world)
+    metrics = pipeline.PairMetrics()
+    rel2_2d, wall_2d = synced(lambda: pipeline.run_stage2_mgicp(
+        cfg, init_poses=x["init"].copy(), clouds=clouds, n=N_SCANS, mesh=mesh_2d,
+        metrics=metrics))
+    launches_2d = read_launches()
+    # the same pairs through sharded_mgicp_2d (pyramids per pair, no retries)
+    circuit = pipeline.circuit_pairs(N_SCANS)
+    res_2d, wall_fn = synced(lambda: point_sharding.sharded_mgicp_2d(
+        mesh_2d, cloud.stack_clouds([clouds[s] for s, _ in circuit]),
+        cloud.stack_clouds([clouds[t] for _, t in circuit]), x["init"].astype(np.float32),
+        n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations,
+        scale_capacities=cloud.plan_scale_caps(clouds, multiscale.create_scales(
+            cfg.mgicp_scales))))
+    ok = [r["status"] == "ok" for r in metrics.rows]
+    d_fn = float(np.abs(res_2d.transformation.double().cpu().numpy()[ok] - rel2_2d[ok]).max())
+    graph = pose_graph.PoseGraph(*(torch.as_tensor(x["graph"][k], device=clouds[0].device)
+                                   for k in pose_graph.PoseGraph._fields))
+    shared, wall_pg = synced(lambda: distributed_pg.distributed_global_optimization(
+        pairs, graph, max_correspondence_distance=2 * cfg.voxel_size))
+    print(f"rank {rank}: stage 2 on (pairs=1, points={world}) {wall_2d:.3f} s, launches "
+          f"{launches_2d}; sharded_mgicp_2d {wall_fn:.3f} s, within {d_fn:.3e} of it on its "
+          f"{sum(ok)} pairs that were not retried; distributed_global_optimization "
+          f"{wall_pg:.3f} s", flush=True)
+    if rank == 0:
+        with open(f"{tmp}/out.pkl", "wb") as fh:
+            pickle.dump(dict(got, rel2_2d=rel2_2d, wall_2d=wall_2d, wall_pg=wall_pg, d_fn=d_fn,
+                             pg_nodes=shared.nodes.cpu().numpy()), fh)
+    dist.destroy_process_group()
+
+
+def phase_mesh_two_ranks(scans, gt, init, batched: dict, one: dict) -> None:
+    """Phase 21 (module docstring): two ranks sharing this card over gloo."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/inputs.pkl", "wb") as fh:
+            pickle.dump(dict(scans=scans, init=init, graph=one["graph"]), fh)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank, args=(r, 2, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            while any(p.is_alive() for p in procs):
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError(f"a mesh rank failed: exit codes {codes}")
+                if time.perf_counter() - t0 > MESH_RANK_LIMIT_S:
+                    raise AssertionError(f"the mesh ranks overran {MESH_RANK_LIMIT_S} s")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"mesh ranks exit codes {codes}")
+        with open(f"{tmp}/out.pkl", "rb") as fh:
+            got = pickle.load(fh)
+    ranks_s = time.perf_counter() - t0
+    d1 = float(np.abs(got["rel1"] - one["rel1"]).max())
+    d12 = float(np.abs(got["rel12"] - one["rel12"]).max())
+    d2d = float(np.abs(got["rel2_2d"] - batched["rel2"]).max())
+    dg = float(np.abs(got["pg_nodes"] - one["pg_nodes"]).max())
+    errors = [pose_error(got["rel2_2d"][k], gt[k]) for k in range(N_SCANS)]
+    worst = max(e for e, _ in errors), max(r for _, r in errors)
+    print(f"mesh, two ranks on one card (gloo): the ranks' processes {ranks_s:.1f} s; stage 1 "
+          f"{got['wall1']:.3f} s (1 rank {one['wall1']:.3f} s) within {d1:.3e}, stage 1 -> 2 "
+          f"{got['wall1'] + got['wall12']:.3f} s (1 rank {one['wall1'] + one['wall12']:.3f} s) "
+          f"within {d12:.3e} of phase 20 (limit {MAX_MESH_STAGE1:g}); stage 2 on (pairs=1, "
+          f"points=2) {got['wall_2d']:.3f} s (batched {batched['wall2']:.3f} s) within "
+          f"{d2d:.3e} of phase 11 (limit {MAX_MESH_2D:g}), worst pair {worst[0] * 100:.3f} cm "
+          f"{worst[1]:.4f} deg; sharded_mgicp_2d within {got['d_fn']:.3e} of that stage 2 "
+          f"(limit {MAX_MESH_STAGE2:g}); distributed pose graph {got['wall_pg']:.3f} s within "
+          f"{dg:.3e} of phase 20 (limit {MAX_MESH_PG:g})")
+    if not (d1 < MAX_MESH_STAGE1 and d12 < MAX_MESH_STAGE1 and d2d < MAX_MESH_2D
+            and worst[0] < MAX_T_ERR_M and worst[1] < MAX_R_ERR_DEG and dg < MAX_MESH_PG
+            and got["d_fn"] < MAX_MESH_STAGE2):
+        raise AssertionError(f"two mesh ranks differ: {d1}, {d12}, {d2d}, {worst}, {dg}, "
+                             f"{got['d_fn']}")
+
+
 def main() -> int:
     import torch
 
@@ -1679,15 +1937,19 @@ def main() -> int:
     launches3, wall3 = phase_stage3(clouds, gt, rel12)
     launches_full, full_out, full_wall = phase_full(clouds, rel1, rel12,
                                                     wall1 + wall12 + wall3)
-    launches_b1, launches_b2 = phase_batched(clouds, gt, init, rel1, base, wall1, wall2)
+    launches_b1, launches_b2, batched = phase_batched(clouds, gt, init, rel1, base, wall1,
+                                                      wall2)
     phase_stage3_nclt(dev)
     phase_stage1_split(clouds)
     records.append(phase_k7(dev, clouds, gt))
     launches7 = phase_brute(clouds, gt, init)
     phase_stage1_selection(clouds, gt)
     phase_retry(clouds, gt, init, base)
-    launches_main, launches_log = phase_entry_points(clouds, scans, gt, full_out, full_wall)
+    launches_main, launches_log, pair = phase_entry_points(clouds, scans, gt, full_out,
+                                                           full_wall)
     phase_data_plane(scans)
+    one = phase_mesh_one_rank(clouds, scans, init, batched, pair)
+    phase_mesh_two_ranks(scans, gt, init, batched, one)
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

@@ -5,12 +5,14 @@ module paths and function names.  Ported: the entry points
 (``python -m pcr_tpu_torch stage1|stage2|stage3|full|pair|report``, dataset
 loading through the native PCD reader of ``native/``, ``LazyClouds``,
 ``pipeline.run_pair``, ``viz``), stages 1, 2 and 3 and ``pipeline.run_full``
-(stages 1 -> 3 in one window, the main path), and the staged runners at
-every ``batch_size`` on one card.  The seven Pallas kernels those paths run
-(K1-K7) are hand-written CUDA kernels here (``csrc/``, bound in
-``ops/kernels/``); on CPU tensors every wrapper runs its plain PyTorch
-version instead.  Clouds and loaded scans go to the CUDA card unless the
-caller asks for the CPU.  Not ported: the device meshes (``parallel/``).
+(stages 1 -> 3 in one window, the main path), the staged runners at every
+``batch_size`` on one card, and the device meshes (``parallel/`` on
+``torch.distributed``, one process a device: ``mesh=`` of the staged
+runners, ``point_mesh=`` of ``run_pair``, the CLI's ``--devices`` and
+``--shard-points``).  The seven Pallas kernels those paths run (K1-K7) are
+hand-written CUDA kernels here (``csrc/``, bound in ``ops/kernels/``); on
+CPU tensors every wrapper runs its plain PyTorch version instead.  Clouds
+and loaded scans go to the CUDA card unless the caller asks for the CPU.
 
 Importing this package never imports ``jax`` or ``pcr_tpu``.
 """

@@ -12,8 +12,21 @@ Scans are read from ``$PCR_REFERENCE_ROOT/nuvens/nuvens_pre_processadas/
 <dataset>/s{i}.pcd`` onto the CUDA card.  Each stage persists poses in the
 reference's text layout (pose_{i+1}_{i}.txt / pose{i}.txt), so stages restart
 independently and read the shipped fixture files.  One JSON summary line is
-printed at the end.  ``--devices`` and ``--shard-points`` (pcr_tpu's device
-meshes) are not ported and raise.
+printed at the end.
+
+Device meshes, one process a device (``parallel/``):
+
+  torchrun --nproc-per-node 4 -m pcr_tpu_torch full --dataset NCLT --devices 4
+  torchrun --nproc-per-node 4 -m pcr_tpu_torch stage2 --devices 2 --shard-points 2
+  torchrun --nproc-per-node 2 -m pcr_tpu_torch pair --dataset Courtyard \
+      --src 4 --tgt 2 --shard-points 2
+
+``--devices N`` shards the pairs of stage1 / stage2 / full over N ranks
+(``--shard-points Q`` as well: stage 2 also splits each pair's source rows
+over Q ranks, N x Q in all); ``pair --shard-points Q`` splits the pair's
+source rows.  The mesh needs as many ranks as devices (``--devices 1`` runs
+in this process).  ``stage3`` builds the mesh and does not use it, as
+pcr_tpu's does.  Only rank 0 writes files and prints the summary line.
 """
 
 from __future__ import annotations
@@ -41,10 +54,9 @@ def _build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--output-root", default="outputs")
         sp.add_argument("--batch-size", type=int, default=1)
         sp.add_argument("--devices", type=int, default=None,
-                        help="shard pairs over N devices (not ported: raises)")
+                        help="shard pairs over N devices (N ranks)")
         sp.add_argument("--shard-points", type=int, default=None,
-                        help="shard each pair's source rows over N devices "
-                             "(not ported: raises)")
+                        help="shard each pair's source rows over N devices")
         return sp
 
     add_common(sub.add_parser("stage1", help="FGR coarse pairwise registration"))
@@ -106,20 +118,35 @@ def _load_init(args, cfg, n, stage_dir, fixture_kind):
 
 def main(argv=None, device=None) -> int:
     """Run one command.  ``device`` is where every scan the command loads is
-    placed (default: the CUDA card; without one pass "cpu")."""
+    placed (default: the CUDA card; without one pass "cpu"), and the
+    backend of a mesh's process group when this call starts it (NCCL on
+    the card, gloo on the CPU)."""
     args = _build_parser().parse_args(argv)
-    if args.devices or args.shard_points:
-        raise NotImplementedError("--devices / --shard-points: device meshes (parallel/, "
-                                  "ROADMAP Queue 1 item 7) are not ported")
     cfg = _config(args)
 
     from . import pipeline
-    from .utils import poses_io
+    from .parallel import mesh as mesh_mod
+    from .utils import collectives, poses_io
 
     n = args.n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     t0 = time.time()
     summary: dict = {"command": args.command, "n": n,
                      "config": dataclasses.asdict(cfg)}
+    mesh = pmesh = None
+    if args.devices and args.shard_points and args.command != "pair":
+        # pairs x points: stage 2 also splits every pair's source rows
+        mesh = mesh_mod.make_2d_mesh(args.devices, args.shard_points, device=device)
+        summary["mesh"] = {"pairs": args.devices, "points": args.shard_points}
+    elif args.devices:
+        mesh = mesh_mod.make_pair_mesh(args.devices, device=device)
+        summary["mesh"] = {"pairs": args.devices}
+    if args.command == "pair" and args.shard_points:
+        pmesh = mesh_mod.make_point_mesh(args.shard_points, device=device)
+    # a command that runs no sharded work runs on rank 0 alone, so that one
+    # rank writes its files
+    sharded = (args.command in ("stage1", "stage2", "full") and mesh is not None
+               or pmesh is not None)
+    lead = mesh_mod.rank() == 0
 
     def load():
         return pipeline._load_circuit_clouds(cfg, range(n), device=device)
@@ -134,14 +161,17 @@ def main(argv=None, device=None) -> int:
                 cfg.fitness_gate, stage="mgicp"),
         }
 
-    if args.command == "stage1":
+    if not (sharded or lead):
+        pass    # another rank runs this command
+    elif args.command == "stage1":
         metrics = pipeline.PairMetrics()
-        pipeline.run_stage1_fgr(cfg, clouds=load(), n=n, metrics=metrics)
+        pipeline.run_stage1_fgr(cfg, clouds=load(), n=n, metrics=metrics, mesh=mesh)
         summary["success_rate"] = metrics.success_rate(cfg.fitness_gate)
     elif args.command == "stage2":
         init = _load_init(args, cfg, n, "relative_poses_FGR", "FGR")
         metrics = pipeline.PairMetrics()
-        pipeline.run_stage2_mgicp(cfg, init_poses=init, clouds=load(), n=n, metrics=metrics)
+        pipeline.run_stage2_mgicp(cfg, init_poses=init, clouds=load(), n=n, metrics=metrics,
+                                  mesh=mesh)
         summary.update(stage2_rates(metrics))
     elif args.command == "stage3":
         rel = _load_init(args, cfg, n, "relative_poses_FGR_GICP", "FGR_GICP")
@@ -153,20 +183,23 @@ def main(argv=None, device=None) -> int:
     elif args.command == "full":
         metrics = pipeline.PairMetrics()
         clouds = load()
-        if cfg.batch_size <= 1:
+        if mesh is None and cfg.batch_size <= 1:
             # stage 2 streams behind stage 1 in one window (pipeline.run_full)
             out = pipeline.run_full(cfg, clouds=clouds, n=n, metrics=metrics)
             results = out["stage3"]
         else:
-            rel1 = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=n, metrics=metrics)
+            rel1 = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=n, metrics=metrics, mesh=mesh)
             rel2 = pipeline.run_stage2_mgicp(cfg, init_poses=rel1, clouds=clouds, n=n,
-                                             metrics=metrics)
-            results = pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds, n=n)
+                                             metrics=metrics, mesh=mesh)
+            # stage 3 is not sharded (as in pcr_tpu): rank 0 runs it
+            results = (pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds, n=n)
+                       if lead else {})
         summary["methods"] = sorted(results)
         summary.update(stage2_rates(metrics))
         summary["stage1_success_rate"] = metrics.success_rate(cfg.fitness_gate, stage="fgr")
     elif args.command == "pair":
-        out = pipeline.run_pair(cfg, args.src, args.tgt, init=args.init, device=device)
+        out = pipeline.run_pair(cfg, args.src, args.tgt, init=args.init, point_mesh=pmesh,
+                                device=device)
         summary.update(out)
     elif args.command == "report":
         import numpy as np
@@ -187,8 +220,11 @@ def main(argv=None, device=None) -> int:
         paths = viz.report_circuit(cfg.out_dir("report"), None, results, reference=ref)
         summary["artifacts"] = paths
 
+    if mesh is not None or pmesh is not None:
+        collectives.barrier()
     summary["seconds"] = round(time.time() - t0, 2)
-    print(json.dumps(summary))
+    if lead:
+        print(json.dumps(summary))
     return 0
 
 

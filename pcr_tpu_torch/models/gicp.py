@@ -12,6 +12,19 @@ Per Gauss-Newton iteration:
   4. one damped Gauss-Newton step on xi = (omega, t): T <- exp(xi) T;
   5. convergence when |delta fitness| < relative_fitness and |delta rmse| <
      relative_rmse (Open3D's ICPConvergenceCriteria).
+
+``group=`` (pcr_tpu's ``axis_name``) is the point-sharded mode of
+``parallel/point_sharding``: every rank passes the whole source and works on
+its block of the source rows, and the metric sums and the normal equations
+(H, g) are summed over the group's ranks every iteration before the damping
+and the solve, so every rank takes the same pose update and leaves the loop
+at the same iteration.  The band sweep splits the rows after its sort, into
+blocks of the whole query tiles that hold real rows: a tile then meets the
+slab it meets on one device, and the result is the one-device result up to
+the summation order.
+pcr_tpu shards the rows before its sort, which moves the slabs: done that
+way, chip_smoke.py's two-rank stage 2 landed 9.9e-4 from the one-device
+poses on an H100 80GB HBM3 (700 W).
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import torch
 
 from ..ops import band_nn, eigen3
 from ..ops import knn as knn_ops
+from ..utils import collectives
 from ..utils import se3
 from ..utils.cloud import Cloud, pad_rows
 
@@ -113,11 +127,15 @@ def robust_weight(loss: str, r: torch.Tensor, k: float) -> torch.Tensor:
     raise ValueError(f"unknown loss {loss!r}")
 
 
-def _metrics(valid: torch.Tensor, d2: torch.Tensor, src_mask: torch.Tensor):
-    """(fitness, rmse, n_corr) reductions, as 0-dim f32 tensors."""
-    n_corr = torch.sum(valid.to(torch.float32))
-    n_src = torch.sum(src_mask.to(torch.float32))
-    sum_d2 = torch.sum(torch.where(valid, d2, 0.0))
+def _metrics(valid: torch.Tensor, d2: torch.Tensor, src_mask: torch.Tensor, group=None):
+    """(fitness, rmse, n_corr) reductions, as 0-dim f32 tensors; with
+    ``group`` the three sums are summed over its ranks before dividing."""
+    sums = torch.stack([torch.sum(valid.to(torch.float32)),
+                        torch.sum(src_mask.to(torch.float32)),
+                        torch.sum(torch.where(valid, d2, 0.0))])
+    if group is not None:
+        sums = collectives.all_reduce_sum(sums, group)
+    n_corr, n_src, sum_d2 = sums
     fitness = n_corr / torch.clamp(n_src, min=1.0)
     rmse = torch.sqrt(sum_d2 / torch.clamp(n_corr, min=1.0))
     return fitness, rmse, n_corr
@@ -158,13 +176,25 @@ def _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist: float):
     return p, j, valid, d2
 
 
+def _damped_step(H, g, n_corr, T, group):
+    """The pose update from the normal equations: (H, g) summed over
+    ``group``'s ranks, then the Levenberg damping and the 6x6 solve; no
+    correspondence keeps T."""
+    if group is not None:
+        Hg = collectives.all_reduce_sum(torch.cat([H.reshape(36), g]), group)
+        H, g = Hg[:36].reshape(6, 6), Hg[36:]
+    H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * torch.eye(6, dtype=H.dtype, device=H.device)
+    xi = torch.where(n_corr > 0, -solve6_cholesky(H, g), 0.0)
+    return se3.compose(se3.se3_exp(xi), T)
+
+
 def gicp_step(src_pts, src_cov, src_mask, tgt_pts, tgt_cov, tgt_mask, T, max_dist: float,
-              loss: str = "l1", gm_k: float = 1.0):
+              loss: str = "l1", gm_k: float = 1.0, group=None):
     """One brute-force correspondence search and Gauss-Newton update with
     full covariances (regularized by the caller).  Returns (T_new, fitness,
     rmse, n_corr), the metrics measured at the input pose."""
     p, j, valid, d2 = _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist)
-    fitness, rmse, n_corr = _metrics(valid, d2, src_mask)
+    fitness, rmse, n_corr = _metrics(valid, d2, src_mask, group)
     d = tgt_pts[j] - p
     R = se3.rot(T)
     M = _inv3(tgt_cov[j] + R @ src_cov @ R.T)                 # (N, 3, 3)
@@ -175,28 +205,30 @@ def gicp_step(src_pts, src_cov, src_mask, tgt_pts, tgt_cov, tgt_mask, T, max_dis
     wG = G * w[:, None, None]
     H = torch.einsum("nij,nik->jk", wG, M @ G)
     g = torch.einsum("nij,ni->j", wG, (M @ d[:, :, None])[:, :, 0])
-    H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * torch.eye(6, dtype=H.dtype, device=H.device)
-    xi = torch.where(n_corr > 0, -solve6_cholesky(H, g), 0.0)  # no correspondences: keep T
-    return se3.compose(se3.se3_exp(xi), T), fitness, rmse, n_corr
+    return _damped_step(H, g, n_corr, T, group), fitness, rmse, n_corr
 
 
 def registration_gicp(source: Cloud, target: Cloud, max_corr_dist, T_init,
                       corr_method: str = "auto", loss: str = "l1", gm_k: float = 1.0,
                       max_iteration: int = 100, relative_fitness: float = 1e-6,
-                      relative_rmse: float = 1e-6) -> RegistrationResult:
+                      relative_rmse: float = 1e-6, group=None,
+                      q_tile: int = 1024) -> RegistrationResult:
     """GICP with ICPConvergenceCriteria semantics.  The clouds must carry
-    normals or covariances.
+    normals or covariances.  ``group``: this rank works on its block of the
+    source rows and every reduction is summed over the group (module
+    docstring).
 
     ``corr_method``: 'auto', 'band' and 'band_pallas' run the band sweep
-    (kernel K1) in sorted space; 'brute' runs the exact brute-force search
-    (kernel K7) with full covariances; pcr_tpu's 'grid' (a CPU hash grid) is
-    not ported."""
+    (kernel K1) in sorted space, ``q_tile`` sorted queries a tile (with a
+    group, the unit in which the rows are split); 'brute' runs the exact
+    brute-force search (kernel K7) with full covariances; pcr_tpu's 'grid'
+    (a CPU hash grid) is not ported."""
     T0 = torch.as_tensor(T_init, dtype=torch.float32, device=source.device)
     max_dist = float(np.float32(max_corr_dist))
     args = (source, target, max_dist, T0, loss, gm_k, max_iteration, relative_fitness,
-            relative_rmse)
+            relative_rmse, group)
     if corr_method in ("auto", "band", "band_pallas"):
-        return _gicp_band_sorted(*args)
+        return _gicp_band_sorted(*args, q_tile=q_tile)
     if corr_method == "brute":
         return _gicp_brute(*args)
     if corr_method == "grid":
@@ -206,18 +238,21 @@ def registration_gicp(source: Cloud, target: Cloud, max_corr_dist, T_init,
 
 def _gicp_brute(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor, loss: str,
                 gm_k: float, max_iteration: int, relative_fitness: float,
-                relative_rmse: float) -> RegistrationResult:
+                relative_rmse: float, group=None) -> RegistrationResult:
     """GICP over brute-force correspondences (pcr_tpu's non-band loop), with
     the final metrics taken at the converged pose."""
+    if group is not None:   # this rank's rows
+        source = source[collectives.rank_block(source.capacity, group)]
     src_cov = _regularized_covariances(source)
     tgt_cov = _regularized_covariances(target)
 
     def step(T):
         return gicp_step(source.points, src_cov, source.mask, target.points, tgt_cov,
-                         target.mask, T, max_dist, loss=loss, gm_k=gm_k)
+                         target.mask, T, max_dist, loss=loss, gm_k=gm_k, group=group)
 
     # the convergence flag is read on the host every iteration, as in the
-    # band loop below
+    # band loop below; with a group it comes from the summed metrics, so
+    # every rank leaves at the same iteration
     T = T0
     fit_prev, rmse_prev = -1.0, -1.0
     iters = 0
@@ -231,7 +266,7 @@ def _gicp_brute(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor,
             break
     _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask,
                                   T, max_dist)
-    fitness, rmse, n_corr = _metrics(valid, d2, source.mask)
+    fitness, rmse, n_corr = _metrics(valid, d2, source.mask, group)
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.tensor(iters, dtype=torch.int32, device=source.device))
 
@@ -246,6 +281,7 @@ def _gicp_band_sorted(
     max_iteration: int,
     relative_fitness: float,
     relative_rmse: float,
+    group=None,
     q_tile: int = 1024,
 ) -> RegistrationResult:
     """Band-accelerated GICP that LIVES in sorted query space.
@@ -273,6 +309,14 @@ def _gicp_band_sorted(
 
     nq = source.points.shape[0]
     nq_pad = -(-nq // q_tile) * q_tile
+    mine = slice(None)      # the sorted rows this rank sweeps: all of them...
+    if group is not None:
+        # ...or its block of the tiles that hold real rows (masked rows sort
+        # last), a whole tile or more for every rank
+        n_tiles = max(-(-int(source.mask.sum()) // q_tile), collectives.group_size(group))
+        nq_pad = max(nq_pad, n_tiles * q_tile)
+        tiles = collectives.rank_block(n_tiles, group)
+        mine = slice(tiles.start * q_tile, tiles.stop * q_tile)
     nr_pad = index.r_sorted.shape[0]
     qo = index.q_order
     src_pts_s = pad_rows(source.points[qo], nq_pad, band_nn.SENTINEL)
@@ -283,25 +327,26 @@ def _gicp_band_sorted(
     tgt_pack = torch.cat([index.r_sorted, tgt_n_sorted,
                           torch.zeros((nr_pad, 2), dtype=torch.float32, device=dev)], dim=1)
 
+    pts_m, n_m, mask_m = src_pts_s[mine], src_n_s[mine], src_mask_s[mine]
+
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    minus_eye = (-eye3).expand(nq_pad, 3, 3)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    minus_eye = (-eye3).expand(pts_m.shape[0], 3, 3)
 
     def corr_step(T):
-        p = se3.transform_points(T, src_pts_s)
-        d2a, i_s = band_nn.nn1_band_query_sorted(index, p, src_mask_s, max_dist,
+        p = se3.transform_points(T, pts_m)
+        d2a, i_s = band_nn.nn1_band_query_sorted(index, p, mask_m, max_dist,
                                                  q_tile=q_tile, band=band)
         pack = tgt_pack[i_s]                                  # (N, 8) one gather
         q, m = pack[:, :3], pack[:, 3:6]
         d = q - p
         d2 = torch.sum(d * d, dim=1)
-        valid = src_mask_s & (d2a < band_nn.BIG) & (d2 <= max_d2)
+        valid = mask_m & (d2a < band_nn.BIG) & (d2 <= max_d2)
         return p, m, d, d2, valid
 
     def step(T):
         p, m, d, d2, valid = corr_step(T)
-        fitness, rmse, n_corr = _metrics(valid, d2, src_mask_s)
-        u = src_n_s @ T[:3, :3].T                             # R n_p
+        fitness, rmse, n_corr = _metrics(valid, d2, mask_m, group)
+        u = n_m @ T[:3, :3].T                                 # R n_p
         C = 2.0 * eye3 - a * (m[:, :, None] * m[:, None, :] + u[:, :, None] * u[:, None, :])
         M = _inv3(C)
         r_norm = torch.sqrt(torch.clamp(d2, min=1e-16))
@@ -311,16 +356,15 @@ def _gicp_band_sorted(
         wG = G * w[:, None, None]
         H = torch.einsum("nij,nik->jk", wG, MG)
         g = torch.einsum("nij,ni->j", wG, (M @ d[:, :, None])[:, :, 0])
-        H = H + 1e-6 * (torch.trace(H) / 6.0 + 1.0) * eye6   # Levenberg damping
-        xi = -solve6_cholesky(H, g)
-        xi = torch.where(n_corr > 0, xi, 0.0)
-        return se3.compose(se3.se3_exp(xi), T), fitness, rmse, n_corr
+        return _damped_step(H, g, n_corr, T, group), fitness, rmse, n_corr
 
     # The loop reads the convergence flag on the host every iteration.  On
     # the H100 that measured faster than reading it every 4 iterations and
     # freezing converged state on the device (see PERF.md): registrations
     # converge in 3-8 iterations per scale, so the extra iterations cost more
     # than the reads, and the loop is bound by host launches either way.
+    # With a group the flag comes from the summed metrics, identical on every
+    # rank, so no rank leaves the others waiting in a collective.
     T = T0
     fit_prev, rmse_prev = -1.0, -1.0
     iters = 0
@@ -334,7 +378,9 @@ def _gicp_band_sorted(
             break
 
     # FINAL metrics over the un-capped band (the 1024 cap can truncate
-    # in-radius correspondences at high density while the pose is unchanged)
+    # in-radius correspondences at high density while the pose is unchanged);
+    # its own index groups every row, so with a group each rank queries them
+    # all and no sum is needed
     band_f = _band_width(nr0, 2048)
     if band_f != band:
         p_f = se3.transform_points(T, src_pts_s)
@@ -345,7 +391,7 @@ def _gicp_band_sorted(
         fitness, rmse, n_corr = _metrics(valid, d2f, src_mask_s)
     else:
         _, _, _, d2, valid = corr_step(T)
-        fitness, rmse, n_corr = _metrics(valid, d2, src_mask_s)
+        fitness, rmse, n_corr = _metrics(valid, d2, mask_m, group)
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.tensor(iters, dtype=torch.int32, device=dev))
 

@@ -43,8 +43,11 @@ Design on the card, float32 throughout:
     joint cost); accept / reject, the damping and the stopping tests run on
     the host in float32, as the JAX package's ``lax.while_loop`` does on
     the device.
-  * Not ported: the JAX package's ``axis_name`` (its edge-sharded psum of
-    the normal equations), which belongs to the distributed pose graph.
+  * ``group=`` (pcr_tpu's ``axis_name``): the graph's edges are this rank's
+    shard and its nodes are replicated (``parallel/distributed_pg``).  The
+    normal equations (dense H and b, or the circuit's bands and b) and the
+    joint cost are summed over the group's ranks, which all get the same
+    bits, so every rank reads the same cost and takes the same LM decisions.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from ...utils import collectives
 from ...utils import se3
 from ...utils.cloud import _placement
 
@@ -135,12 +139,17 @@ def _line_process_update(graph: PoseGraph, nodes, mu):
     return torch.where(graph.uncertain, torch.square(mu / (mu + rTr)), torch.ones_like(rTr))
 
 
-def _total_cost(graph: PoseGraph, nodes, l, mu):
-    """Joint objective at (nodes, l): data term + line-process prior."""
+def _total_cost(graph: PoseGraph, nodes, l, mu, group=None):
+    """Joint objective at (nodes, l): data term + line-process prior, summed
+    over ``group``'s edge shards."""
     _, rTr = _edge_rTr(graph, nodes)
     m = graph.edge_mask.to(torch.float32)
     prior = m * graph.uncertain.to(torch.float32) * mu * torch.square(torch.sqrt(l) - 1.0)
-    return torch.sum(m * l * rTr) + torch.sum(prior)
+    return _psum(torch.sum(m * l * rTr) + torch.sum(prior), group)
+
+
+def _psum(x, group):
+    return x if group is None else collectives.all_reduce_sum(x, group)
 
 
 def _band_matvec(D, U, x):
@@ -214,8 +223,9 @@ def _gradient(graph: PoseGraph, bi, bj):
         0, graph.edge_dst, bj)
 
 
-def _build_dense(graph: PoseGraph, nodes, l):
-    """The (6n, 6n) Hessian and (6n,) gradient of the whole graph."""
+def _build_dense(graph: PoseGraph, nodes, l, group=None):
+    """The (6n, 6n) Hessian and (6n,) gradient of the whole graph (summed
+    over ``group``'s edge shards)."""
     n = graph.nodes.shape[0]
     src, dst = graph.edge_src, graph.edge_dst
     Hii, Hjj, Hij, bi, bj = _edge_blocks(graph, nodes, l)
@@ -224,12 +234,16 @@ def _build_dense(graph: PoseGraph, nodes, l):
     H.index_put_((dst, dst), Hjj, accumulate=True)
     H.index_put_((src, dst), Hij, accumulate=True)
     H.index_put_((dst, src), Hij.transpose(1, 2), accumulate=True)
-    return H.permute(0, 2, 1, 3).reshape(6 * n, 6 * n), _gradient(graph, bi, bj).reshape(6 * n)
+    H, b = H.permute(0, 2, 1, 3).reshape(6 * n, 6 * n), _gradient(graph, bi, bj).reshape(6 * n)
+    if group is None:
+        return H, b
+    Hb = _psum(torch.cat([H.reshape(-1), b]), group)
+    return Hb[:36 * n * n].reshape(6 * n, 6 * n), Hb[36 * n * n:]
 
 
-def _build_tridiag(graph: PoseGraph, nodes, l):
+def _build_tridiag(graph: PoseGraph, nodes, l, group=None):
     """(n, 6, 6) diagonal and super-diagonal Hessian bands and the (n, 6)
-    gradient of a circuit graph."""
+    gradient of a circuit graph (summed over ``group``'s edge shards)."""
     n = graph.nodes.shape[0]
     src, dst = graph.edge_src, graph.edge_dst
     Hii, Hjj, Hij, bi, bj = _edge_blocks(graph, nodes, l)
@@ -239,13 +253,18 @@ def _build_tridiag(graph: PoseGraph, nodes, l):
     adj = (dst == src + 1)[:, None, None]
     off = graph.nodes.new_zeros((n, 6, 6)).index_add_(
         0, src, torch.where(adj, Hij, torch.zeros_like(Hij)))
-    return diag, off, _gradient(graph, bi, bj)
+    if group is None:
+        return diag, off, _gradient(graph, bi, bj)
+    flat = _psum(torch.cat([diag.reshape(-1), off.reshape(-1),
+                            _gradient(graph, bi, bj).reshape(-1)]), group)
+    return (flat[:36 * n].reshape(n, 6, 6), flat[36 * n:72 * n].reshape(n, 6, 6),
+            flat[72 * n:].reshape(n, 6))
 
 
-def _solve_dense(graph: PoseGraph, nodes, l, lam: float):
+def _solve_dense(graph: PoseGraph, nodes, l, lam: float, group=None):
     """LM step of nodes 1..n-1 (node 0, the reference, is gauge-fixed)."""
     n = graph.nodes.shape[0]
-    H, b = _build_dense(graph, nodes, l)
+    H, b = _build_dense(graph, nodes, l, group)
     Hr, br = H[6:, 6:], b[6:]
     Hd = Hr + torch.diag(lam * (torch.diagonal(Hr) + 1e-12))
     # one step of iterative refinement: the gauge-fixed chain Hessian has
@@ -255,10 +274,10 @@ def _solve_dense(graph: PoseGraph, nodes, l, lam: float):
     return -x.reshape(n - 1, 6)
 
 
-def _solve_tridiag(graph: PoseGraph, nodes, l, lam: float):
+def _solve_tridiag(graph: PoseGraph, nodes, l, lam: float, group=None):
     """LM step of nodes 1..n-1 of a circuit graph by block-Thomas."""
     n = graph.nodes.shape[0]
-    diag, off, b = _build_tridiag(graph, nodes, l)
+    diag, off, b = _build_tridiag(graph, nodes, l, group)
     D = diag[1:]                                      # nodes 1..n-1
     D = D + torch.diag_embed(lam * (torch.diagonal(D, dim1=-2, dim2=-1) + 1e-12))
     U = off[1 : n - 1]                                # node j -> j+1, j = 1..n-2
@@ -270,8 +289,14 @@ def _solve_tridiag(graph: PoseGraph, nodes, l, lam: float):
 
 
 def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100,
-                             rel_tol: float = 1e-9, solver: str = "dense") -> LMResult:
+                             rel_tol: float = 1e-9, solver: str = "dense",
+                             group=None) -> LMResult:
     """One line-process LM pass.
+
+    ``group``: the edges are this rank's shard of an edge-sharded graph
+    (nodes replicated); the normal equations and the cost are summed over
+    the group, so every rank returns the same nodes, cost and iteration
+    count, and the line-process weights of its own edges.
 
     ``solver='tridiag'`` exploits the circuit structure (edges (i, i+1) and
     the single loop edge (n-1, 0), as ``build_circuit_graph`` makes them):
@@ -286,17 +311,17 @@ def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100
     # the line process starts at 1 on every edge (module docstring)
     nodes = graph.nodes
     l = torch.ones_like(graph.edge_mask, dtype=torch.float32)
-    lam, cost = f32(1e-6), f32(_total_cost(graph, nodes, l, mu).item())
+    lam, cost = f32(1e-6), f32(_total_cost(graph, nodes, l, mu, group).item())
     it = 0
     while it < max_iterations:
         # pose update with the line process HELD FIXED...
-        delta = torch.cat([nodes.new_zeros((1, 6)), solve(graph, nodes, l, float(lam))])
+        delta = torch.cat([nodes.new_zeros((1, 6)), solve(graph, nodes, l, float(lam), group)])
         new_nodes = se3.se3_exp(delta) @ nodes
         # ...then its closed-form re-estimate from the NEW residuals: new_l
         # minimises the joint objective given new_nodes, so comparing the
         # joint costs is a valid descent test
         new_l = _line_process_update(graph, new_nodes, mu)
-        new_cost = f32(_total_cost(graph, new_nodes, new_l, mu).item())
+        new_cost = f32(_total_cost(graph, new_nodes, new_l, mu, group).item())
         it += 1
         improved = new_cost < cost
         converged = improved and (cost - new_cost) < f32(rel_tol) * (cost + f32(1e-12))

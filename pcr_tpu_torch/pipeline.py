@@ -19,13 +19,21 @@ Each runner takes the clouds it is given (a list of port Clouds, or a
 ``clouds=None``, loads the dataset's PCD scans onto the CUDA card
 (``_load_circuit_clouds``; streamed through a ``LazyClouds`` above 32 scans).
 ``run_pair`` registers one scan pair; ``python -m pcr_tpu_torch`` is the CLI
-over all of them.  Not ported yet: the mesh branches (``mesh=`` of the staged
-runners, ``point_mesh=`` of ``run_pair``), which raise ``NotImplementedError``.
+over all of them.
+
+Device meshes (``parallel/``, one process a device): ``mesh=`` of the staged
+runners shards the pairs over the mesh's 'pairs' axis (and, on a 2-D mesh,
+each pair's source rows over 'points' in stage 2), ``point_mesh=`` of
+``run_pair`` shards the pair's source rows.  Every rank runs the runner on
+the same inputs and returns the same poses; only rank 0 writes pose files,
+metrics and checkpoints, and every rank waits for the others before it
+returns.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -39,8 +47,9 @@ from .models import multiscale as ms_mod
 from .models.global_refine import closed_form
 from .models.global_refine import pose_graph as pg_mod
 from .ops import fpfh_sorted
+from .parallel import mesh as mesh_mod
 from .utils import cloud as cloud_mod
-from .utils import poses_io, se3
+from .utils import collectives, poses_io, se3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +159,16 @@ def _chunks(n: int, size: int = PAIR_CHUNK) -> list[list[int]]:
     return [list(range(s, min(s + size, n))) for s in range(0, n, size)]
 
 
+def _writes(mesh) -> bool:
+    """True when this rank writes the runner's files: without a mesh, or on
+    rank 0 of one.  A mesh that is not a ``parallel.mesh.Mesh`` is refused."""
+    if mesh is None:
+        return True
+    if not isinstance(mesh, mesh_mod.Mesh):
+        raise TypeError(f"a mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    return mesh_mod.rank() == 0
+
+
 def _pad_feat(feat, capacity: int):
     """Pad (N, 33) features with zero rows to ``capacity`` (mask handles it)."""
     return cloud_mod.pad_rows(feat, capacity, 0.0)
@@ -186,17 +205,17 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     scan's features (normals + FPFH) are computed once at its own capacity
     bucket and shared by the two pairs it serves; a pair runs at the larger
     of its two buckets.  With ``batch_size`` > 1 pairs run in chunks
-    (``_run_stage1_fgr_batched``)."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh branch (mesh=) is not ported")
+    (``_run_stage1_fgr_batched``), and so they do with a ``mesh``, each chunk
+    sharded over its 'pairs' axis."""
+    _writes(mesh)    # refuses a mesh that is not a Mesh
     if cfg.stage1_features not in ("banded", "selection"):
         raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     if clouds is None:
         clouds = _load_circuit_clouds(cfg, range(n))
     metrics = metrics if metrics is not None else PairMetrics()
-    if cfg.batch_size > 1:
-        return _run_stage1_fgr_batched(cfg, clouds, n, metrics)
+    if cfg.batch_size > 1 or mesh is not None:
+        return _run_stage1_fgr_batched(cfg, clouds, n, metrics, mesh)
     buckets = _buckets(clouds, n, cfg.bucket_granularity)
     feat_cache: dict[int, tuple] = {}
 
@@ -276,7 +295,7 @@ def _flag_stage1_outliers(poses: np.ndarray, metrics: PairMetrics, window: int =
 
 
 def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
-                            metrics: PairMetrics) -> np.ndarray:
+                            metrics: PairMetrics, mesh=None) -> np.ndarray:
     """Pair-parallel stage 1 (pcr_tpu's batched branch).  A chunk of B =
     ``batch_size`` consecutive circuit pairs touches B+1 consecutive-mod-n
     scans: they are compacted to the largest capacity bucket among them,
@@ -286,8 +305,19 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
     tuple cap, 0.2 x the larger of its two scans' buckets; the other options
     are ``default_options`` of scan 0.  The tail chunk repeats its last pair
     up to B; the repeats are dropped.  A checkpoint is written every chunk,
-    and each pair's ``seconds`` is its chunk's wall over its real pairs."""
-    B = cfg.batch_size
+    and each pair's ``seconds`` is its chunk's wall over its real pairs.
+
+    With a ``mesh`` B is rounded up to a multiple of its 'pairs' axis; the
+    chunk's scan stack, padded by repeating its last scan to a multiple of
+    the axis, is featurized sharded over it (``sharded_fgr_features``) and
+    the pairs register sharded (``sharded_fgr``)."""
+    from .parallel import pair_sharding
+
+    writes = _writes(mesh)
+    B = max(cfg.batch_size, 1)
+    if mesh is not None:
+        ndev = mesh.shape["pairs"]
+        B = mesh_mod.pad_to_multiple(max(B, ndev), ndev)
     opts = fgr_mod.default_options(clouds[0], clouds[0], cfg.voxel_size)
     buckets = _buckets(clouds, n, cfg.bucket_granularity)
     out = np.zeros((n, 4, 4))
@@ -297,8 +327,15 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
         m = min(B, n - start)  # real pairs in this chunk
         scan_ids = [(start + j) % n for j in range(m + 1)]
         cap = max(buckets[i] for i in scan_ids)
-        stacked = cloud_mod.stack_clouds([cloud_mod.compact(clouds[i], cap) for i in scan_ids])
-        if cfg.stage1_features == "banded":
+        scans = [cloud_mod.compact(clouds[i], cap) for i in scan_ids]
+        if mesh is not None:   # the scan stack fills the 'pairs' axis
+            scans += scans[-1:] * ((-len(scans)) % ndev)
+        stacked = cloud_mod.stack_clouds(scans)
+        if mesh is not None:
+            feat_clouds, feats = pair_sharding.sharded_fgr_features(
+                mesh, stacked, cfg.voxel_size, features=cfg.stage1_features,
+                band=cfg.stage1_band)
+        elif cfg.stage1_features == "banded":
             feat_clouds, feats = fpfh_sorted.batched_fgr_features_sorted(
                 stacked, cfg.voxel_size, band=cfg.stage1_band)
         else:
@@ -309,20 +346,26 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
         max_tuples = [max(int(0.2 * max(buckets[scan_ids[a]], buckets[scan_ids[b]])), 256)
                       for a, b in zip(src_pos, tgt_pos)]
         seeds = [cfg.fgr_seed + scan_ids[a] for a in src_pos]
-        res = fgr_mod.batched_registration_fgr(
-            feat_clouds[src_pos], feat_clouds[tgt_pos], feats[src_pos], feats[tgt_pos], opts,
-            seeds, max_tuples=max_tuples)
+        pair_args = (feat_clouds[src_pos], feat_clouds[tgt_pos], feats[src_pos], feats[tgt_pos])
+        if mesh is None:
+            res = fgr_mod.batched_registration_fgr(*pair_args, opts, seeds, max_tuples=max_tuples)
+        else:
+            res = pair_sharding.sharded_fgr(mesh, *pair_args, seeds, opts, max_tuples=max_tuples)
         T = res.transformation.double().cpu().numpy()
         fit, rmse = res.fitness.cpu().numpy(), res.inlier_rmse.cpu().numpy()
         dt = (time.time() - t0) / m
         for j in range(m):
             out[start + j] = T[j]
             metrics.add("fgr", scan_ids[j + 1], scan_ids[j], float(fit[j]), float(rmse[j]), dt)
-        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
-        np.save(ckpt, out[: start + m])  # crash-resumable partial checkpoint
+        if writes:
+            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+            np.save(ckpt, out[: start + m])  # crash-resumable partial checkpoint
     _flag_stage1_outliers(out, metrics)
-    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out)
-    metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+    if writes:
+        poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out)
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+    if mesh is not None:
+        collectives.barrier()
     return out
 
 
@@ -390,9 +433,14 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     Every ``batch_size`` runs this streamed branch: pcr_tpu's batched branch
     (chunks of pairs, each building its own pyramids) computes the same
     poses, since a cloud's pyramid does not depend on the pair it serves.
+    So does its mesh branch: with a ``mesh`` every rank runs this loop over
+    its contiguous block of the pairs (the 'pairs' axis), its retries and
+    gate scores included, and the blocks' poses and metrics rows are
+    gathered to every rank.  On a (pairs, points) mesh every scale's GICP
+    also splits the pair's source rows over 'points'
+    (``point_sharding.point_sharded_multiscale_gicp``).
     """
-    if mesh is not None:
-        raise NotImplementedError("the mesh branch (mesh=) is not ported")
+    writes = _writes(mesh)
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     if clouds is None:
         clouds = _load_circuit_clouds(cfg, range(n))
@@ -403,6 +451,15 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     caps = cfg.scale_capacities
     if caps == "auto":
         caps = cloud_mod.plan_scale_caps(clouds, ms_mod.create_scales(cfg.mgicp_scales))
+    mine = slice(0, n)
+    refine = ms_mod.multiscale_gicp_pyramids
+    if mesh is not None:
+        mine = mesh.block("pairs", n)
+        if "points" in mesh.axis_names:
+            from .parallel import point_sharding
+
+            refine = functools.partial(point_sharding.point_sharded_multiscale_gicp, mesh)
+    first_row = len(metrics.rows)
     out = np.zeros((n, 4, 4))
     pyr_cache: dict[int, tuple] = {}
 
@@ -434,16 +491,16 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
         if cfg.retry_failed and fit <= cfg.retry_fitness:
             retries.append((k, s, t, res))
         drained = k + 1
-        if drained % 50 == 0:  # crash-resumable partial checkpoint
+        if writes and drained % 50 == 0:  # crash-resumable partial checkpoint
             os.makedirs(os.path.dirname(ckpt), exist_ok=True)
             np.save(ckpt, out[:drained])
             metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"),
                          stage="mgicp")
 
-    for k, (s, t) in enumerate(pairs):
-        res = ms_mod.multiscale_gicp_pyramids(
-            pyramid(s), pyramid(t), np.asarray(init_poses[k], np.float32),
-            n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations)
+    for k in range(mine.start, mine.stop):
+        s, t = pairs[k]
+        res = refine(pyramid(s), pyramid(t), np.asarray(init_poses[k], np.float32),
+                     n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations)
         inflight.append((k, s, t, res))
         # keep only the pyramids the next pair still needs
         for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
@@ -464,11 +521,20 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
             status=status, scale_iterations=res.scale_iterations.tolist())
         for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
             del pyr_cache[key]
-    _annotate_gate_fitness(cfg, clouds, pairs, out, metrics)
-    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out)
-    poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
-                                 se3.relative_to_absolute(out))
-    metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
+    _annotate_gate_fitness(cfg, clouds, pairs[mine], out[mine], metrics)
+    if mesh is not None:   # every rank gets every block; rank order is pair order
+        parts = collectives.all_gather_objects((mine, out[mine], metrics.rows[first_row:]),
+                                               mesh.group("pairs"))
+        metrics.rows[first_row:] = [row for _, _, rows in parts for row in rows]
+        for block, poses, _ in parts:
+            out[block] = poses
+    if writes:
+        poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out)
+        poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
+                                     se3.relative_to_absolute(out))
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
+    if mesh is not None:
+        collectives.barrier()
     return out
 
 
@@ -484,11 +550,11 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
     the shipped absolute FGR_GICP fixtures (inv(A_tgt) @ A_src); or a 4x4
     array.  Writes ``pose_{src}_{tgt}.txt`` and ``metrics/pair_{src}_{tgt}.jsonl``.
     Returns {"src", "tgt", "dataset", ["fgr_fitness"], "T", "fitness", "rmse",
-    "mgicp_seconds", "seconds", "info_trace"}.  ``point_mesh`` (pcr_tpu's
-    point-sharded refinement) is not ported and raises."""
-    if point_mesh is not None:
-        raise NotImplementedError("point_mesh=: the point-sharded refinement (parallel/, "
-                                  "ROADMAP Queue 1 item 7) is not ported")
+    "mgicp_seconds", "seconds", "info_trace"[, "point_mesh"]}.  ``point_mesh``:
+    a 'points' mesh (``parallel.mesh.make_point_mesh``); the M-GICP runs
+    with the source rows sharded over its ranks
+    (``point_sharding.point_sharded_multiscale_gicp``) from rank 0's seed."""
+    writes = _writes(point_mesh)
     metrics = metrics if metrics is not None else PairMetrics()
     src_c, tgt_c = cloud_mod.load_dataset(cfg.dataset, indices=[src_i, tgt_i], device=device)
     out: dict = {"src": src_i, "tgt": tgt_i, "dataset": cfg.dataset}
@@ -522,9 +588,23 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
     if caps == "auto":
         caps = cloud_mod.plan_scale_caps([src_c, tgt_c], ms_mod.create_scales(cfg.mgicp_scales))
     t1 = time.time()
-    res = ms_mod.multiscale_gicp(src_c, tgt_c, np.asarray(T0, np.float32),
-                                 n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations,
-                                 scale_capacities=caps)
+    if point_mesh is not None:
+        from .parallel import point_sharding
+
+        # every rank starts from the same bits: a pose the ranks computed
+        # apart may differ in its last bits on other cards
+        T0 = collectives.broadcast(torch.as_tensor(np.asarray(T0, np.float64),
+                                                   device=src_c.device)).cpu().numpy()
+        pyr_s, pyr_t = (ms_mod.build_pyramid(c, n_scales=cfg.mgicp_scales,
+                                             scale_capacities=caps) for c in (src_c, tgt_c))
+        res = point_sharding.point_sharded_multiscale_gicp(
+            point_mesh, pyr_s, pyr_t, np.asarray(T0, np.float32), n_scales=cfg.mgicp_scales,
+            iterations=cfg.mgicp_iterations)
+        out["point_mesh"] = int(point_mesh.shape["points"])
+    else:
+        res = ms_mod.multiscale_gicp(src_c, tgt_c, np.asarray(T0, np.float32),
+                                     n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations,
+                                     scale_capacities=caps)
     T = res.transformation.double().cpu().numpy()
     out.update(T=T.tolist(), fitness=float(res.fitness), rmse=float(res.inlier_rmse),
                mgicp_seconds=round(time.time() - t1, 3), seconds=round(time.time() - t0, 3))
@@ -533,9 +613,12 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
     info = eval_mod.information_matrix(tgt_c, src_c, cfg.voxel_size,
                                        se3.invert(T).astype(np.float32))
     out["info_trace"] = float(torch.trace(info))
-    poses_io.save_pose(os.path.join(cfg.out_dir("relative_poses_FGR_GICP"),
-                                    f"pose_{src_i}_{tgt_i}.txt"), T)
-    metrics.save(os.path.join(cfg.out_dir("metrics"), f"pair_{src_i}_{tgt_i}.jsonl"))
+    if writes:
+        poses_io.save_pose(os.path.join(cfg.out_dir("relative_poses_FGR_GICP"),
+                                        f"pose_{src_i}_{tgt_i}.txt"), T)
+        metrics.save(os.path.join(cfg.out_dir("metrics"), f"pair_{src_i}_{tgt_i}.jsonl"))
+    if point_mesh is not None:
+        collectives.barrier()
     return out
 
 

@@ -205,7 +205,9 @@ def test_run_pair_seeds_match_pcr_tpu(mini, tmp_path, init):
     _, dt = se3.pose_errors(np.asarray(got["T"]), np.linalg.inv(A[1]) @ A[3])
     assert float(dt) < 0.1, dt
     assert got["info_trace"] == pytest.approx(want["info_trace"], rel=1e-3)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a point mesh is a parallel.mesh.Mesh (the point-sharded branch runs:
+    # tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Mesh"):
         t_pipe.run_pair(t_pipe.PipelineConfig(**kw), 3, 1, init=seed, point_mesh=object(),
                         device="cpu")
 
@@ -257,10 +259,19 @@ def test_report_exports_artifacts(mini, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--devices", "--shard-points"])
 def test_cli_refuses_device_meshes(mini, tmp_path, flag):
+    """Outside a launcher a mesh of more than one device is refused, naming
+    the torchrun command that starts its ranks (one process a device): a
+    pair mesh of 2 (``--devices 2``), a (2, 2) mesh (``--devices 2
+    --shard-points 2``) or a point mesh of 2 (``pair --shard-points 2``).
+    The branches run under a launcher: tests/test_torch_parallel.py."""
     for command in ("full", "stage2", "pair"):
         extra = ["--src", "1", "--tgt", "0"] if command == "pair" else []
-        with pytest.raises(NotImplementedError, match="item 7"):
-            t_cli.main([command, *ARGS, *extra, flag, "2", "--output-root", str(tmp_path)],
+        mesh = (["--devices", "2"] if flag == "--devices"
+                else ["--shard-points", "2"] if command == "pair"
+                else ["--devices", "2", "--shard-points", "2"])
+        ranks = 4 if len(mesh) == 4 else 2
+        with pytest.raises(ValueError, match=f"torchrun --nproc-per-node {ranks}"):
+            t_cli.main([command, *ARGS, *extra, *mesh, "--output-root", str(tmp_path)],
                        device="cpu")
 
 

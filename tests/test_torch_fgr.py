@@ -179,12 +179,13 @@ def test_stage1_writes_pose_files(stage1_runs):
 
 
 def test_stage1_refuses_unported_branches(tmp_path):
-    """The mesh branch is not ported, and an unknown feature kind is
-    refused, at either batch size: both raise instead of running something
-    else.  (The batched branch is ported: tests/test_torch_batched.py.)"""
+    """A mesh that is not a ``parallel.mesh.Mesh`` and an unknown feature
+    kind are refused at either batch size: both raise instead of running
+    something else.  (The batched branch: tests/test_torch_batched.py; the
+    mesh branch: tests/test_torch_parallel.py.)"""
     clouds = [t_cloud.from_numpy(np.zeros((10, 3), np.float32), 256, device="cpu")] * 2
     for batch_size in (1, 2):
-        for kw, mesh, exc in ((dict(), object(), NotImplementedError),
+        for kw, mesh, exc in ((dict(), object(), TypeError),
                               (dict(stage1_features="sorted"), None, ValueError)):
             cfg = t_pipe.PipelineConfig(**dict(KW, output_root=str(tmp_path),
                                                **dict(kw, batch_size=batch_size)))

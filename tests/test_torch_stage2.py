@@ -120,14 +120,15 @@ def test_stage2_writes_pose_file_contract(runs):
 
 
 def test_stage2_refuses_unported_branches(circuit, tmp_path):
-    """The mesh branch is not ported: at either batch size it raises instead
-    of running something else.  (Batch sizes above 1 run:
-    tests/test_torch_batched.py.)"""
+    """A mesh that is not a ``parallel.mesh.Mesh`` is refused at either
+    batch size instead of running something else.  (Batch sizes above 1
+    run: tests/test_torch_batched.py; the mesh branch:
+    tests/test_torch_parallel.py.)"""
     scans, _, init = circuit
     clouds = [t_cloud.from_numpy(s, 2048, device="cpu") for s in scans]
     kw = dict(KW, output_root=str(tmp_path))
     for batch_size in (1, 2):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             t_pipe.run_stage2_mgicp(t_pipe.PipelineConfig(**dict(kw, batch_size=batch_size)),
                                     init_poses=init, clouds=clouds, n=N, mesh=object())
 
