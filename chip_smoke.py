@@ -117,8 +117,25 @@ Phases (any failure ends the run with a non-zero exit code):
                within 1e-6 of it where no retry ran;
                distributed_global_optimization on the 2 ranks against phase
                20's (5e-4).  A rank that fails or overruns fails the run.
+ 22. graph builder — the k-connectivity "SLAM mode" at Facade scale: a
+               seeded 7-scan circuit of the same scene (44.6k-83.6k valid
+               points in the 90112 bucket, neighbours 0.5-1.5 m apart, 1 cm
+               noise) through models/graph_builder with
+               benchmarks/facade_k2_report.py's call (voxel 0.1, k=2, 3
+               doubling scales, 100 iterations; 11 edges):
+               full_registration_batched (batch 2; cold, then again after
+               the serial builder, the two graphs bit for bit equal) and
+               full_registration, each builder's wall, edges/s, retried
+               pairs, peak memory and K1-K7 launches (K1-K3 must be
+               launched); every edge's gate fitness and error against
+               ground truth (odometry edges within 3 cm / 0.2 deg);
+               global_optimization of the batched graph (every node within
+               8 cm, aligned ATE); the serial graph against the batched one
+               on the pairs neither builder retried (edge_T 5e-4, nodes
+               5e-3, information rtol 0.05 / atol 50).
 The line before the last is the kernels' JSON record (``launches``: K1-K6
-from the CLI's ``full`` run of phase 18, K7 from the brute GICP);
+from the CLI's ``full`` run of phase 18, K7 from the brute GICP;
+``max_abs_err`` of K4 over the cloud's real rows);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
@@ -904,7 +921,7 @@ def check_k4_k6(label: str, c, voxel_size: float, bucket: int, band: int):
           f"ascending-row sums, max |sum err| against the plain version {err6:.3e} (max sum "
           f"{float(a_p.max()):.3e}), kernel {ms6:.4f} ms, plain {plain6:.4f} ms, "
           f"bound {lim6[0]:.4f} ms")
-    return ((err4, ms4, plain4, *lim4), (err5, ms5, plain5, *lim5),
+    return ((err4_cloud, ms4, plain4, *lim4), (err5, ms5, plain5, *lim5),
             (err6, ms6, plain6, *lim6))
 
 
@@ -1903,6 +1920,169 @@ def phase_mesh_two_ranks(scans, gt, init, batched: dict, one: dict) -> None:
                              f"{got['d_fn']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the k-connectivity graph builder at Facade scale
+# ---------------------------------------------------------------------------
+
+FACADE_SCANS = 7
+FACADE_CAPACITY = 90112          # pcr_tpu's Facade bucket
+FACADE_POINTS = (44728, 84141)   # the real Facade scans' fewest and most valid points
+FACADE_STEPS_M = (0.5, 1.5)      # neighbour to neighbour
+FACADE_CALL = dict(voxel_size=0.1, k=2, n_scales=3, iterations=100)  # facade_k2_report.py
+FACADE_BATCH = 2
+MAX_NODE_ERR_M = 0.08            # an optimised node against ground truth (pcr_tpu's test)
+# the serial builder against the batched one (pcr_tpu's own bounds)
+MAX_BUILDERS_EDGE = 5e-4
+MAX_BUILDERS_NODE = 5e-3
+BUILDERS_INFO_RTOL, BUILDERS_INFO_ATOL = 0.05, 50.0
+
+
+def make_facade_circuit(seed: int = SEED):
+    """(scans as (n_i, 3) float32 arrays in their sensor frames, absolute
+    poses (FACADE_SCANS, 4, 4) sensor -> world).  The path turns by up to
+    8.6 deg a step, neighbours 0.5-1.5 m apart; scan k keeps about
+    FACADE_POINTS spread linearly over the scans, drawn from the scene of
+    ``_world`` with weight 1/r^2 (1-30 m; the weights scaled until the
+    expected count is the target, points near the sensor kept with
+    probability 1), with 1 cm noise."""
+    rng = np.random.default_rng(seed + 22)
+    steps = rng.permutation(np.linspace(*FACADE_STEPS_M, FACADE_SCANS - 1))
+    yaw, p = 0.0, np.zeros(3)
+    absolute = [np.eye(4)]
+    for step in steps:
+        yaw += rng.uniform(-0.15, 0.15)
+        p = p + [step * math.cos(yaw), step * math.sin(yaw), rng.uniform(-0.05, 0.05)]
+        A = np.eye(4)
+        A[:3, :3], A[:3, 3] = _rot_z(yaw), p
+        absolute.append(A)
+    world = _world(rng, np.mean([A[:3, 3] for A in absolute], axis=0))
+    scans = []
+    for A, target in zip(absolute, np.linspace(*FACADE_POINTS, FACADE_SCANS)):
+        r = np.linalg.norm(world - A[:3, 3], axis=1)
+        w = np.where((r > 1.0) & (r < 30.0), 1.0 / np.maximum(r, 2.0) ** 2, 0.0)
+        lo, hi = target / w.sum(), target / w.sum() * 1e4
+        for _ in range(60):                   # bisection on log(scale)
+            mid = math.sqrt(lo * hi)
+            lo, hi = (mid, hi) if np.minimum(1.0, mid * w).sum() < target else (lo, mid)
+        pts = world[rng.random(len(world)) < np.minimum(1.0, hi * w)]
+        pts = pts + rng.normal(0.0, NOISE_M, pts.shape)
+        scans.append(((pts - A[:3, 3]) @ A[:3, :3]).astype(np.float32))
+    return scans, np.stack(absolute)
+
+
+@contextlib.contextmanager
+def ladder_seeds(seeds: list):
+    """Record the tuple-test seed of every ``fgr.registro_fgr`` call while
+    the block runs: the builders call it for serial attempts only, so the
+    seeds say which pairs took the retry ladder."""
+    from pcr_tpu_torch.models import fgr
+
+    original = fgr.registro_fgr
+
+    def recorded(*args, seed: int = 0, **kw):
+        seeds.append(seed)
+        return original(*args, seed=seed, **kw)
+
+    fgr.registro_fgr = recorded
+    try:
+        yield
+    finally:
+        fgr.registro_fgr = original
+
+
+def phase_graph_builder(dev) -> None:
+    """Phase 22 (module docstring): full_registration_batched and
+    full_registration over the Facade-scale circuit, global_optimization of
+    the batched graph, the two graphs edge by edge."""
+    import torch
+
+    from pcr_tpu_torch.models import evaluate, graph_builder
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.utils import cloud
+
+    scans, absolute = make_facade_circuit()
+    clouds = [cloud.from_numpy(sc, FACADE_CAPACITY, device=dev) for sc in scans]
+    n = len(clouds)
+    steps = [float(np.linalg.norm(absolute[k + 1, :3, 3] - absolute[k, :3, 3]))
+             for k in range(n - 1)]
+    print(f"graph builder: {n} scans in a {FACADE_CAPACITY} bucket, valid points "
+          f"{[len(sc) for sc in scans]}, steps {[round(x, 3) for x in steps]} m; "
+          f"{gpu_line()}")
+    def batched(log):
+        return graph_builder.full_registration_batched(clouds, log=log,
+                                                       batch_size=FACADE_BATCH, **FACADE_CALL)
+
+    def serial(log):
+        return graph_builder.full_registration(clouds, log=log, **FACADE_CALL)
+
+    # the batched builder first in this process and again after the serial
+    # one, so both builders' walls are read warm
+    graphs, retried = {}, {}
+    for name, build in (("batched cold", batched), ("serial", serial),
+                        ("batched", batched)):
+        log, seeds = [], []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with ladder_seeds(seeds):
+            graph, wall = synced(lambda: build(log.append))
+        launches = read_launches()
+        pairs = list(zip(graph.edge_src.tolist(), graph.edge_dst.tolist()))
+        # the serial builder's ladder starts at seed + 101, the batched
+        # builder's (after its batched first attempt) at the pair's seed
+        first = 101 if name == "serial" else 0
+        retried[name] = {(s, t) for s, t in pairs if s * n + t + first in seeds}
+        graphs[name] = graph
+        print(f"{name} builder: {wall:.3f} s, {len(pairs)} edges, {len(pairs) / wall:.3f} "
+              f"edges/s, {len(retried[name])} retried {sorted(retried[name])}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}")
+        T = graph.edge_T.double().cpu().numpy()
+        for e, (s, t) in enumerate(pairs):
+            e_t, e_r = pose_error(T[e], np.linalg.inv(absolute[t]) @ absolute[s])
+            print(f"  {log[e]}: {e_t * 100:.3f} cm {e_r:.4f} deg from ground truth")
+            if t == s + 1 and not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
+                raise AssertionError(f"{name} odometry edge {s}->{t} off ground truth: "
+                                     f"{e_t} m, {e_r} deg")
+        print(f"  {log[-1]}")
+        check_launched(launches, STAGE2_KERNELS, f"the {name} builder")
+
+    truth = np.stack([np.linalg.inv(absolute[0]) @ A for A in absolute])
+    (out, info), wall_opt = synced(lambda: pose_graph.global_optimization(
+        graphs["batched"], max_correspondence_distance=0.2, edge_prune_threshold=0.25,
+        return_info=True))
+    nodes = out.nodes.double().cpu().numpy()
+    errs = [pose_error(nodes[i], truth[i]) for i in range(n)]
+    ate = evaluate.aligned_ate(nodes, truth)
+    print(f"global_optimization of the batched graph: {wall_opt:.3f} s, {info}; node errors "
+          + ", ".join(f"{e_t * 100:.3f} cm {e_r:.4f} deg" for e_t, e_r in errs)
+          + f"; aligned ATE rmse {ate['rmse_m'] * 100:.3f} cm, max {ate['max_m'] * 100:.3f} cm")
+    worst = max(e_t for e_t, _ in errs)
+    if not worst < MAX_NODE_ERR_M:
+        raise AssertionError(f"an optimised node is {worst} m off ground truth")
+
+    ser, bat = graphs["serial"], graphs["batched"]
+    if not all(torch.equal(a, b) for a, b in zip(graphs["batched cold"], bat)):
+        raise AssertionError("the batched builder's two runs differ")
+    skip = retried["serial"] | retried["batched"]
+    keep = [e for e, st in enumerate(zip(bat.edge_src.tolist(), bat.edge_dst.tolist()))
+            if st not in skip]
+    dT = float((ser.edge_T - bat.edge_T)[keep].abs().max())
+    I_s, I_b = ser.edge_info[keep], bat.edge_info[keep]
+    info_ok = bool(torch.all((I_s - I_b).abs()
+                             <= BUILDERS_INFO_ATOL + BUILDERS_INFO_RTOL * I_b.abs()))
+    odometry_retried = any(t == s + 1 for s, t in skip)
+    dN = None if odometry_retried else float((ser.nodes - bat.nodes).abs().max())
+    print(f"serial against batched on the {len(keep)} edges neither retried: edge_T within "
+          f"{dT:.3e} (limit {MAX_BUILDERS_EDGE:g}), information matrices "
+          f"{'within' if info_ok else 'outside'} rtol {BUILDERS_INFO_RTOL:g} / atol "
+          f"{BUILDERS_INFO_ATOL:g}, nodes "
+          + ("not compared (an odometry pair was retried)" if dN is None
+             else f"within {dN:.3e} (limit {MAX_BUILDERS_NODE:g})"))
+    if not (torch.equal(ser.edge_src, bat.edge_src) and torch.equal(ser.edge_dst, bat.edge_dst)
+            and dT <= MAX_BUILDERS_EDGE and info_ok
+            and (dN is None or dN <= MAX_BUILDERS_NODE)):
+        raise AssertionError(f"the serial and batched graphs differ: {dT}, {info_ok}, {dN}")
+
+
 def main() -> int:
     import torch
 
@@ -1950,6 +2130,7 @@ def main() -> int:
     phase_data_plane(scans)
     one = phase_mesh_one_rank(clouds, scans, init, batched, pair)
     phase_mesh_two_ranks(scans, gt, init, batched, one)
+    phase_graph_builder(dev)
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

@@ -9,7 +9,9 @@ loading through the native PCD reader of ``native/``, ``LazyClouds``,
 ``batch_size`` on one card, and the device meshes (``parallel/`` on
 ``torch.distributed``, one process a device: ``mesh=`` of the staged
 runners, ``point_mesh=`` of ``run_pair``, the CLI's ``--devices`` and
-``--shard-points``).  The seven Pallas kernels those paths run (K1-K7) are
+``--shard-points``), and the k-connectivity pose-graph builder
+(``models/graph_builder``) with its extras (``models/features``,
+``models/manual``).  The seven Pallas kernels those paths run (K1-K7) are
 hand-written CUDA kernels here (``csrc/``, bound in ``ops/kernels/``); on
 CPU tensors every wrapper runs its plain PyTorch version instead.  Clouds
 and loaded scans go to the CUDA card unless the caller asks for the CPU.

@@ -182,12 +182,14 @@ def _correspondences(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: Fgr
 
 def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
                      seed: int = 0, n_trials: int = 16384,
-                     max_tuples: int | None = None) -> RegistrationResult:
+                     max_tuples: int | None = None,
+                     u: torch.Tensor | None = None) -> RegistrationResult:
     """Full FGR: mutual matching -> tuple test -> GNC -> evaluation
     (``models/evaluate.evaluate_registration``, kernel K1).  ``max_tuples``
-    overrides ``opts.maximum_tuple_count``."""
+    overrides ``opts.maximum_tuple_count``; ``u``: optional (n_trials, 3)
+    uniforms for the tuple test."""
     corr_i, corr_j, corr_mask = _correspondences(source, target, feat_src, feat_tgt, opts,
-                                                 seed, n_trials, max_tuples)
+                                                 seed, n_trials, max_tuples, u)
     T = fgr_from_correspondences(source, target, corr_i, corr_j, corr_mask, opts)
     fitness, rmse, n_corr = eval_mod.evaluate_registration(
         source, target, opts.maximum_correspondence_distance, T)
@@ -245,13 +247,15 @@ def batched_fgr_features(clouds: Cloud, voxel_size: float) -> tuple[Cloud, torch
 
 
 def registro_fgr(source: Cloud, target: Cloud, voxel_size: float,
-                 use_absolute_scale: bool = False, seed: int = 0) -> RegistrationResult:
+                 use_absolute_scale: bool = False, seed: int = 0,
+                 u: torch.Tensor | None = None) -> RegistrationResult:
     """The reference's ``registro_FGR``: hybrid normals (2v, 20) -> FPFH
-    (10v, 200) -> FGR with the script-1 options of the two capacities."""
+    (10v, 200) -> FGR with the script-1 options of the two capacities
+    (``u``: optional tuple-test uniforms, as ``registration_fgr``)."""
     src, feat_src = fgr_features(source, voxel_size)
     tgt, feat_tgt = fgr_features(target, voxel_size)
     opts = default_options(src, tgt, voxel_size, use_absolute_scale)
-    return registration_fgr(src, tgt, feat_src, feat_tgt, opts, seed=seed)
+    return registration_fgr(src, tgt, feat_src, feat_tgt, opts, seed=seed, u=u)
 
 
 def default_options(source: Cloud, target: Cloud, voxel_size: float,

@@ -5,13 +5,23 @@
      (once — the grouping may go stale under the rigid motion of an ICP loop
      without hurting correctness, since slab bounds are recomputed from the
      CURRENT coordinates on every query);
-  3. each tile's candidates are ONE contiguous slab of the sorted refs:
-     [searchsorted(tile_min - r) rounded down to ``band``, + 2*band);
+  3. each tile's candidates are ONE contiguous slab of 2*band sorted refs:
+     [searchsorted(tile_min - r) rounded down to ``band``, + 2*band), unless
+     that misses refs level with the tile's own queries and a slab centred
+     on those holds them all;
   4. kernel K1 (``ops/kernels/nn_kernels.nn1_band``) finds every query's
      nearest slab row.
 
-Exact while every tile's in-radius band fits in 2*band sorted rows;
-overflowing slabs lose the farthest candidates only.
+Exact while every tile's in-radius band fits in 2*band sorted rows (the
+slab is then pcr_tpu's).  pcr_tpu always keeps its slab at tile_min - r;
+when the in-radius band overflows, that slab loses the refs level with the
+tile's upper queries, their nearest neighbours included: at a radius of
+metres over a dense cloud (the doubling M-GICP's coarse scales at TLS
+density) the slab can end below the tile, every query then takes a wrong
+neighbour metres down the axis, and the GICP walks off.  The centred slab
+keeps every level ref and loses the candidates farthest along the axis on
+both sides instead.  Where even the level refs overflow the slab, no slab
+holds every query's neighbours, and the slab stays pcr_tpu's.
 """
 
 from __future__ import annotations
@@ -70,14 +80,31 @@ def build_band_index(query, query_mask, ref, ref_mask, *, q_tile: int = 1024,
 
 def slab_starts(index: BandIndex, q_sp: torch.Tensor, max_dist: float,
                  q_tile: int, band: int) -> torch.Tensor:
-    """(n_tiles,) int32 element offset of each query tile's slab: the first
-    sorted ref within max_dist of the tile's lowest query, rounded down to a
-    band multiple and clipped so the 2*band slab stays inside the refs."""
+    """(n_tiles,) int32 element offset of each query tile's 2*band slab,
+    inside the refs.  pcr_tpu's slab starts at the first sorted ref within
+    max_dist of the tile's lowest query, rounded down to a band multiple.
+    It is kept unless it misses some of the refs level with the tile (those
+    between its lowest and highest real query along the axis) and a slab
+    centred on them holds them all; then the centred slab is taken (module
+    docstring)."""
     n_tiles = q_sp.shape[0] // q_tile
-    tile_min = _axis_coord(q_sp, index.axis).view(n_tiles, q_tile).amin(dim=1)
-    starts = torch.searchsorted(index.ra_sorted, tile_min - max_dist)
+    qa = _axis_coord(q_sp, index.axis).view(n_tiles, q_tile)
+    real = qa < SENTINEL / 2                 # masked and padding rows sit at SENTINEL
+    tile_min = qa.amin(dim=1)
+    tile_max = torch.where(real, qa, -BIG).amax(dim=1)
+    ra = index.ra_sorted
     max_blk = max(index.r_sorted.shape[0] // band - 2, 0)
-    return (torch.clamp(starts // band, 0, max_blk) * band).to(torch.int32)
+    ours = torch.clamp(torch.searchsorted(ra, tile_min - max_dist) // band, 0, max_blk) * band
+    lo = torch.searchsorted(ra, tile_min)
+    hi = torch.searchsorted(ra, tile_max, right=True)
+    centred = torch.clamp((lo + hi) // 2 - band, 0, max_blk * band)
+
+    def level_rows(start):
+        return torch.clamp(torch.minimum(hi, start + 2 * band) - torch.maximum(lo, start), min=0)
+
+    level = hi - lo
+    centre = (level_rows(ours) < level) & (level_rows(centred) == level) & real.any(dim=1)
+    return torch.where(centre, centred, ours).to(torch.int32)
 
 
 def nn1_band_query(index: BandIndex, query, query_mask, max_dist: float, *,

@@ -6,6 +6,11 @@ Tolerances: the port computes d2 directly as (q - r)^2 while pcr_tpu ranks
 by the expansion |q|^2 + |r|^2 - 2 q.r, so near-equal candidates may break
 ties differently; the tests compare distances (and validity away from the
 radius), never raw indices.
+
+Slab placement: the port keeps pcr_tpu's slab unless that misses refs
+level with a tile's queries while a slab centred on those holds them all
+(pcr_tpu_torch/ops/band_nn.py); no tile of the parity tests below meets
+that, so their slabs are pcr_tpu's.
 """
 
 import numpy as np
@@ -129,3 +134,33 @@ def test_nn1_band_respects_masks(rng):
     m = c.mask.numpy()
     assert i.numpy()[m].max() < 300                          # never a padded index
     np.testing.assert_allclose(d.numpy()[m], 0.0, atol=1e-6)
+
+
+def _surface(rng, n):
+    xy = rng.uniform(-4, 4, size=(n, 2))
+    z = np.sin(1.3 * xy[:, :1]) * 0.5 + np.cos(0.9 * xy[:, 1:2]) * 0.4
+    return np.concatenate([xy, z], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("max_dist,pcr_tpu_share", [(0.3, 0.9), (2.0, 0.3)])
+def test_overflowing_slab_keeps_the_tiles_own_neighbours(rng, max_dist, pcr_tpu_share):
+    """A dense surface (7600 refs over 8 m of the sweep axis) at the GICP's
+    geometry (tiles of 1024 queries, band 1024): the refs level with a tile
+    fit in its 2048-row slab, the in-radius band does not.  pcr_tpu's slab,
+    placed at tile_min - r rounded down to a band multiple, ends below the
+    tile's upper queries, and misses the nearest neighbour of 12% of the
+    queries at r = 0.3 m and of 74% at 2 m; the port centres such a slab on
+    the level refs and finds every nearest neighbour."""
+    r, q = _surface(rng, 7600), _surface(rng, 7200)
+    rt, qt = (t_cloud.from_numpy(x, 8192, device="cpu") for x in (r, q))
+    rj, qj = (j_cloud.from_numpy(x, 8192) for x in (r, q))
+    d_t, _ = t_band.nn1_band(qt.points, qt.mask, rt.points, rt.mask, max_dist, q_tile=1024,
+                             band=1024)
+    d_j, _ = j_band.nn1_band(qj.points, qj.mask, rj.points, rj.mask, max_dist, q_tile=1024,
+                             band=1024)
+    d_true = np.concatenate([((q[i:i + 600, None] - r[None]) ** 2).sum(-1).min(axis=1)
+                             for i in range(0, len(q), 600)])
+    np.testing.assert_allclose(d_t.numpy()[:len(q)], d_true, rtol=1e-5, atol=1e-7)
+    share_j = np.isclose(np.asarray(d_j)[:len(q)], d_true, rtol=1e-4, atol=1e-6).mean()
+    assert share_j < pcr_tpu_share, share_j
+

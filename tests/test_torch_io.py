@@ -10,11 +10,21 @@ Tolerances: none.  Every comparison is bit for bit (array_equal / bytes),
 because both sides run the same parsers on the same bytes (the native
 library is the same source; the Python parser is the same code) and a
 loader only pads and copies float32 rows.
+
+The native cases check for both libraries when they run, not when the file
+is imported.  pcr_tpu builds its library into one fixed temporary path and
+caches a failed load for the life of the process, so when several pytest
+workers import the test files of a fresh checkout at once, all but one of
+them lose that build and would skip every native case.  No test runs before
+every worker has finished collecting, so by then the winner's library is on
+disk and a second load only reads it (``_native_libraries``).
 """
 
+import fcntl
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -33,8 +43,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAP = 1024
 SIZES = (700, 1000, 512, 900)
 
-needs_native = pytest.mark.skipif(not (t_native.available() and j_native.available()),
-                                  reason="g++ unavailable: no native reader to compare")
+
+
+def _native_libraries() -> None:
+    """Skip when g++ is missing (the port's library cannot be built); else
+    make sure pcr_tpu's library is loaded in this process too, retrying a
+    load that an earlier, concurrent build made fail.  The retry holds a
+    lock file, so a build it starts runs in one process at a time."""
+    if not t_native.available():
+        pytest.skip("g++ unavailable: no native reader to compare")
+    if not j_native.available():
+        with open(os.path.join(tempfile.gettempdir(), "pcr_tpu_native_build.lock"), "w") as fh:
+            fcntl.flock(fh, fcntl.LOCK_EX)
+            j_native._lib_failed = False
+            j_native.load_library()
+    assert j_native.available(), "pcr_tpu's native library did not load"
+
+
+@pytest.fixture
+def native_libraries():
+    _native_libraries()
+
+
+needs_native = pytest.mark.usefixtures("native_libraries")
 
 
 def _scan(rng, n):
@@ -173,8 +204,8 @@ def test_load_cloud_matches_pcr_tpu(dataset, capacity):
 def reader(request, monkeypatch):
     """Both loaders' paths: the native batch reader, and the Python parser
     (native.available() False in both packages, as without g++)."""
-    if request.param == "native" and not (t_native.available() and j_native.available()):
-        pytest.skip("g++ unavailable")
+    if request.param == "native":
+        _native_libraries()
     if request.param == "python":
         monkeypatch.setattr(t_native, "available", lambda: False)
         monkeypatch.setattr(j_native, "available", lambda: False)
