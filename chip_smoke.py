@@ -67,10 +67,14 @@ Phases (any failure ends the run with a non-zero exit code):
                across a group or ref-range boundary at its first row;
  15. brute GICP — registration_gicp(corr_method="brute") warm-started over
                the 5 pyramid scales of every pair: within 3 cm / 0.2 deg of
-               ground truth and 5 mm / 0.05 deg of the band GICP; the exact
+               ground truth and 5 mm / 0.05 deg of the band GICP; the same
+               with corr_method="grid" (the hash grid of ops/grid_nn), held
+               to ground truth and within 5 mm / 0.05 deg of brute, its
+               iterations a scale beside brute's; the exact
                gate evaluation beside the band one; K7 must have been
-               launched; pair 0 again on K7's plain version: the same pose
-               bit for bit;
+               launched; the ms of one Gauss-Newton iteration of grid, band
+               (K1) and brute (K7) at pair 0's finest scale; pair 0 again on
+               K7's plain version: the same pose bit for bit;
  16. stage 1, selection — run_stage1_fgr(stage1_features="selection"):
                every pair within 0.5 m / 5 deg;
  17. retry ladder — stage 2 with retry_failed=True (the reference default),
@@ -88,8 +92,13 @@ Phases (any failure ends the run with a non-zero exit code):
                pcr_tpu_torch pair --src 1 --tgt 0`` as a subprocess within
                3 cm / 0.2 deg; ``stage3 --relative`` the CLI's stage-2 poses,
                all four methods within 5 cm aligned ATE; ``report`` (the
-               trajectory PLYs); models/gicp.gicp_loss_log (K7) on pair 0's
-               finest scale; the native PCD reader must have built;
+               trajectory PLYs); models/gicp.gicp_loss_log on pair 0's
+               finest scale, corr_method "brute" (K7, one launch an
+               iteration and one for the final metrics, the default on the
+               card) and "grid" (pcr_tpu's default); knn(method="band") with
+               exclude_self on scan 0 at k = 30 and 200 against knn_exact
+               (every distance within 1e-6 relative, recall >= 0.9999);
+               the native PCD reader must have built;
  19. data plane — 901 paths (the 8 files and symlinks cycling over them, the
                NCLT circuit's length): seconds to parse them (native,
                threaded) and to pin them, the Python parser's seconds on the
@@ -1181,10 +1190,13 @@ def check_k7_ties(dev, nq: int, nr: int) -> None:
 
 def phase_brute(clouds, gt, init):
     """Exact-correspondence M-GICP over the circuit: per pair, the pyramids
-    of stage 2 and registration_gicp(corr_method="brute") warm-started over
-    the 5 scales from the real NCLT FGR errors, held to ground truth and to
-    the band GICP on the same pyramids; then the gate's exact evaluation
-    beside the band one.  Returns the launch counts of the run."""
+    of stage 2 and registration_gicp(corr_method="brute") and (the hash
+    grid) corr_method="grid" warm-started over the 5 scales from the real
+    NCLT FGR errors, each held to ground truth, brute to the band GICP and
+    grid to brute on the same pyramids; then the gate's exact evaluation
+    beside the band one, and the ms of one Gauss-Newton iteration of each
+    method at pair 0's finest scale.  Returns the launch counts of the
+    run."""
     import torch
 
     from pcr_tpu_torch.models import evaluate, gicp, multiscale
@@ -1199,43 +1211,56 @@ def phase_brute(clouds, gt, init):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pyrs = [multiscale.build_pyramid(c, cfg.mgicp_scales, caps) for c in clouds]
-    worst = [0.0, 0.0, 0.0, 0.0]
+    worst = {m: [0.0, 0.0, 0.0, 0.0] for m in ("brute", "grid")}
 
-    def brute_scales(k, s, t):
+    def nn1_scales(k, s, t, method="brute"):
         T, its = init[k].astype(np.float32), []
         for i, dist in enumerate(dists):
-            res = gicp.registration_gicp(pyrs[s][i], pyrs[t][i], dist, T, corr_method="brute",
+            res = gicp.registration_gicp(pyrs[s][i], pyrs[t][i], dist, T, corr_method=method,
                                          max_iteration=cfg.mgicp_iterations)
             T = res.transformation
             its.append(int(res.iterations))
         return T.double().cpu().numpy(), its
 
+    def held(name, k, T, ref, ref_name):
+        e_t, e_r = pose_error(T, gt[k])
+        d_t, d_r = pose_error(T, ref)
+        if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
+            raise AssertionError(f"{name} pair {k} off ground truth: {e_t} m, {e_r} deg")
+        if not (d_t < MAX_BRUTE_BAND_T_M and d_r < MAX_BRUTE_BAND_R_DEG):
+            raise AssertionError(f"{name} pair {k} off the {ref_name} result: {d_t} m, {d_r} deg")
+        worst[name] = [max(a, b) for a, b in zip(worst[name], (e_t, e_r, d_t, d_r))]
+        return (f"{e_t * 100:.3f} cm {e_r:.4f} deg from ground truth, {d_t * 1000:.3f} mm "
+                f"{d_r:.4f} deg from {ref_name}")
+
     for k, (s, t) in enumerate(circuit_pairs(N_SCANS)):
-        brute, its = brute_scales(k, s, t)
+        brute, its = nn1_scales(k, s, t)
+        grid, its_g = nn1_scales(k, s, t, "grid")
         band = multiscale.multiscale_gicp_pyramids(
             pyrs[s], pyrs[t], init[k].astype(np.float32)).transformation.double().cpu().numpy()
-        e_t, e_r = pose_error(brute, gt[k])
-        d_t, d_r = pose_error(brute, band)
         gate = [evaluate.evaluate_registration(clouds[s], clouds[t], 2 * cfg.voxel_size, brute,
                                                method=m) for m in ("exact", "band")]
-        print(f"brute pair ({s},{t}): {e_t * 100:.3f} cm {e_r:.4f} deg from ground truth, "
-              f"{d_t * 1000:.3f} mm {d_r:.4f} deg from band; iterations/scale {its}; gate "
-              f"exact n_corr {float(gate[0][2]):.0f} fitness {float(gate[0][0]):.6f}, band "
-              f"n_corr {float(gate[1][2]):.0f} fitness {float(gate[1][0]):.6f}")
-        if not (e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
-            raise AssertionError(f"brute pair {k} off ground truth: {e_t} m, {e_r} deg")
-        if not (d_t < MAX_BRUTE_BAND_T_M and d_r < MAX_BRUTE_BAND_R_DEG):
-            raise AssertionError(f"brute pair {k} off the band result: {d_t} m, {d_r} deg")
-        worst = [max(a, b) for a, b in zip(worst, (e_t, e_r, d_t, d_r))]
+        print(f"brute pair ({s},{t}): "
+              f"{held('brute', k, brute, band, 'band')}"
+              f"; iterations/scale {its}; gate exact n_corr {float(gate[0][2]):.0f} fitness "
+              f"{float(gate[0][0]):.6f}, band n_corr {float(gate[1][2]):.0f} fitness "
+              f"{float(gate[1][0]):.6f}")
+        print(f"grid pair ({s},{t}): "
+              f"{held('grid', k, grid, brute, 'brute')}"
+              f"; iterations/scale {its_g} (brute {its})")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    print(f"brute GICP: {wall:.3f} s for {N_SCANS} pairs (pyramids, brute and band GICP, both "
-          f"gate evaluations); worst {worst[0] * 100:.3f} cm {worst[1]:.4f} deg from ground "
-          f"truth (limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg), {worst[2] * 1000:.3f} "
-          f"mm {worst[3]:.4f} deg from band (limits {MAX_BRUTE_BAND_T_M * 1000:g} mm, "
-          f"{MAX_BRUTE_BAND_R_DEG} deg); launches {launches}")
+    for name, ref in (("brute", "band"), ("grid", "brute")):
+        w = worst[name]
+        print(f"{name} GICP: worst {w[0] * 100:.3f} cm {w[1]:.4f} deg from ground truth "
+              f"(limits {MAX_T_ERR_M * 100:g} cm, {MAX_R_ERR_DEG} deg), {w[2] * 1000:.3f} mm "
+              f"{w[3]:.4f} deg from {ref} (limits {MAX_BRUTE_BAND_T_M * 1000:g} mm, "
+              f"{MAX_BRUTE_BAND_R_DEG} deg)")
+    print(f"brute and grid GICP: {wall:.3f} s for {N_SCANS} pairs (pyramids, brute, grid and "
+          f"band GICP, both gate evaluations); launches {launches}")
     check_launched(launches, BRUTE_KERNELS, "the brute GICP")
+    gn_iteration_ms(pyrs[1][-1], pyrs[0][-1], dists[-1], gt[0])
     # K7's d2 and rows are bit-equal to its plain version's, so the brute
     # GICP on the plain version lands on the same poses, bit for bit
     from pcr_tpu_torch.ops.kernels import nn_kernels as nk
@@ -1243,15 +1268,42 @@ def phase_brute(clouds, gt, init):
     kernel = nk.nn1
     nk.nn1 = nk.nn1_reference
     try:
-        plain = brute_scales(0, *circuit_pairs(N_SCANS)[0])[0]
+        plain = nn1_scales(0, *circuit_pairs(N_SCANS)[0])[0]
     finally:
         nk.nn1 = kernel
-    first = brute_scales(0, *circuit_pairs(N_SCANS)[0])[0]
+    first = nn1_scales(0, *circuit_pairs(N_SCANS)[0])[0]
     if not np.array_equal(plain, first):
         raise AssertionError(f"brute pair 0 on K7's plain version moved by "
                              f"{float(np.abs(plain - first).max())}")
     print("brute pair 0 on K7's plain version: the same pose, bit for bit")
     return launches
+
+
+GN_TIMED_ITERATIONS = 10
+
+
+def gn_iteration_ms(src, tgt, max_dist: float, T) -> None:
+    """Milliseconds of one Gauss-Newton iteration of the grid, band (K1) and
+    brute (K7) GICP on one pair's finest scale: registration_gicp with the
+    convergence test off (0 thresholds: every call runs its whole budget),
+    at 1 + GN_TIMED_ITERATIONS iterations less at 1, over
+    GN_TIMED_ITERATIONS (CUDA events, median of 5).  The per-iteration host
+    read of the convergence flag is part of the loop and is counted."""
+    from pcr_tpu_torch.models import gicp
+
+    def run(method, iterations):
+        return lambda: gicp.registration_gicp(src, tgt, max_dist, T, corr_method=method,
+                                              max_iteration=iterations, relative_fitness=0.0,
+                                              relative_rmse=0.0)
+
+    ms = {}
+    for method in ("grid", "band", "brute"):
+        ms[method] = (cuda_ms(run(method, 1 + GN_TIMED_ITERATIONS), 5)
+                      - cuda_ms(run(method, 1), 5)) / GN_TIMED_ITERATIONS
+    print(f"GICP ms a Gauss-Newton iteration at the finest scale ({src.capacity} x "
+          f"{tgt.capacity} rows, {int(src.mask.sum())} x {int(tgt.mask.sum())} valid, "
+          f"max_dist {max_dist:g} m): grid {ms['grid']:.4f}, band (K1) {ms['band']:.4f}, "
+          f"brute (K7) {ms['brute']:.4f}")
 
 
 def phase_stage1_selection(clouds, gt) -> None:
@@ -1618,21 +1670,59 @@ def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[d
     caps = cloud.plan_scale_caps(clouds, scales)
     src = multiscale.build_pyramid(clouds[1], n_scales=5, scale_capacities=caps)[-1]
     tgt = multiscale.build_pyramid(clouds[0], n_scales=5, scale_capacities=caps)[-1]
-    reset_launches()
-    (res, log), wall_log = synced(lambda: gicp.gicp_loss_log(
-        src, tgt, multiscale.max_correspondence_distances(scales)[-1], full_out["stage2"][0]))
-    launches_log = read_launches()
-    e_t, e_r = pose_error(res.transformation.double().cpu().numpy(), gt[0])
-    rmse = log["inlier_rmse"].cpu().numpy()
-    print(f"gicp_loss_log (brute, K7) on pair 0's finest scale ({src.capacity} x "
-          f"{tgt.capacity} rows): {wall_log * 1e3:.1f} ms for {len(rmse)} iterations, "
-          f"inlier rmse {rmse[0]:.5f} -> {rmse[-1]:.5f} m, {e_t * 100:.3f} cm "
-          f"{e_r:.4f} deg; launches {launches_log}")
-    if not (launches_log["nn1"] == len(rmse) + 1 and np.isfinite(rmse).all()
-            and e_t < MAX_T_ERR_M and e_r < MAX_R_ERR_DEG):
-        raise AssertionError("gicp_loss_log on the card failed its checks")
+    launches_log = {}
+    for method in ("brute", "grid"):
+        reset_launches()
+        (res, log), wall_log = synced(lambda: gicp.gicp_loss_log(
+            src, tgt, multiscale.max_correspondence_distances(scales)[-1], full_out["stage2"][0],
+            corr_method=method))
+        launches_log[method] = read_launches()
+        e_t, e_r = pose_error(res.transformation.double().cpu().numpy(), gt[0])
+        rmse = log["inlier_rmse"].cpu().numpy()
+        print(f"gicp_loss_log ({method}{', K7' if method == 'brute' else ''}) on pair 0's "
+              f"finest scale ({src.capacity} x {tgt.capacity} rows): {wall_log * 1e3:.1f} ms "
+              f"for {len(rmse)} iterations, inlier rmse {rmse[0]:.5f} -> {rmse[-1]:.5f} m, "
+              f"{e_t * 100:.3f} cm {e_r:.4f} deg; launches {launches_log[method]}")
+        k7_ok = method != "brute" or launches_log[method]["nn1"] == len(rmse) + 1
+        if not (k7_ok and np.isfinite(rmse).all() and e_t < MAX_T_ERR_M
+                and e_r < MAX_R_ERR_DEG):
+            raise AssertionError(f"gicp_loss_log ({method}) on the card failed its checks")
+    check_band_knn(clouds[0])
     torch.cuda.synchronize()
-    return launches, launches_log, pair
+    return launches, launches_log["brute"], pair
+
+
+BAND_KNN_KS = (30, 200)
+MAX_BAND_KNN_REL = 1e-6
+MIN_BAND_KNN_RECALL = 0.9999
+
+
+def check_band_knn(c) -> None:
+    """knn(method="band") (pcr_tpu's band self-kNN, knn_exact in the port:
+    ROADMAP F7) with exclude_self on one NCLT-scale scan at k = 30 and 200,
+    against knn_exact on the card: every distance within MAX_BAND_KNN_REL
+    relative, index recall at least MIN_BAND_KNN_RECALL, both walls."""
+    import torch
+
+    from pcr_tpu_torch.ops import knn
+
+    m = c.mask
+    for k in BAND_KNN_KS:
+        (d_b, i_b), wall_b = synced(lambda: knn.knn(c.points, c.points, c.mask, k,
+                                                    exclude_self=True, method="band"))
+        (d_e, i_e), wall_e = synced(lambda: knn.knn_exact(c.points, c.points, c.mask, k,
+                                                          exclude_self=True))
+        d_b, d_e, i_b, i_e = d_b[m], d_e[m], i_b[m], i_e[m]
+        rel = ((d_b - d_e).abs() / d_e.clamp(min=1e-12)).max().item()
+        recall = (i_b[:, :, None] == i_e[:, None, :]).any(dim=2).float().mean().item()
+        print(f"knn(method='band') k={k} exclude_self on scan 0 ({int(m.sum())} of "
+              f"{c.capacity} rows valid): largest relative distance difference to knn_exact "
+              f"{rel:.3e}; index recall {recall:.6f}; band {wall_b * 1e3:.1f} ms, exact "
+              f"{wall_e * 1e3:.1f} ms")
+        if not (bool(torch.isfinite(d_b).all()) and rel <= MAX_BAND_KNN_REL
+                and recall >= MIN_BAND_KNN_RECALL):
+            raise AssertionError(f"knn(method='band') k={k} differs from knn_exact: {rel} "
+                                 f"relative, recall {recall}")
 
 
 def phase_data_plane(scans) -> None:

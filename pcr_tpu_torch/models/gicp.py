@@ -1,10 +1,10 @@
-"""Generalized-ICP (port of pcr_tpu/models/gicp.py, its band and brute
-correspondence methods).
+"""Generalized-ICP (port of pcr_tpu/models/gicp.py: its band, brute and
+hash-grid correspondence methods).
 
 Per Gauss-Newton iteration:
   1. 1-NN correspondences of the transformed source in the target within
-     max_dist (band sweep, kernel K1; or brute force over the whole target,
-     kernel K7);
+     max_dist (band sweep, kernel K1; brute force over the whole target,
+     kernel K7; or the hash grid of ``ops/grid_nn``, built once per call);
   2. plane-disk GICP residuals d = q - T p with the Mahalanobis metric
      M = (C_q + R C_p R^T)^-1, both covariances clamped to eigenvalues
      (eps, 1, 1) with eps = 1e-3;
@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import band_nn, eigen3
+from ..ops import band_nn, eigen3, grid_nn
 from ..ops import knn as knn_ops
 from ..utils import collectives
 from ..utils import se3
@@ -167,11 +167,13 @@ def _band_width(nr0: int, cap: int) -> int:
     return min(cap, max(512, -(-(nr0 // 8) // 256) * 256))
 
 
-def _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist: float):
-    """Brute-force correspondences at pose T (``knn.nn1``, kernel K7):
-    (moved source p, target index j, valid, exact d2)."""
+def _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist: float, accel=None):
+    """Correspondences at pose T: (moved source p, target index j, valid,
+    exact d2).  ``accel`` None runs the brute-force ``knn.nn1`` (kernel K7
+    on the card); a ``grid_nn.HashGrid`` of the target runs ``nn1_grid``."""
     p = se3.transform_points(T, src_pts)
-    d2, j = knn_ops.nn1(p, tgt_pts, tgt_mask)
+    d2, j = (knn_ops.nn1(p, tgt_pts, tgt_mask) if accel is None
+             else grid_nn.nn1_grid(accel, p, max_dist))
     valid = src_mask & (d2 <= knn_ops.sq_f32(max_dist)) & (d2 < knn_ops.BIG)
     return p, j, valid, d2
 
@@ -189,11 +191,12 @@ def _damped_step(H, g, n_corr, T, group):
 
 
 def gicp_step(src_pts, src_cov, src_mask, tgt_pts, tgt_cov, tgt_mask, T, max_dist: float,
-              loss: str = "l1", gm_k: float = 1.0, group=None):
-    """One brute-force correspondence search and Gauss-Newton update with
-    full covariances (regularized by the caller).  Returns (T_new, fitness,
-    rmse, n_corr), the metrics measured at the input pose."""
-    p, j, valid, d2 = _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist)
+              loss: str = "l1", gm_k: float = 1.0, group=None, accel=None):
+    """One correspondence search (``_correspond``'s ``accel``) and
+    Gauss-Newton update with full covariances (regularized by the caller).
+    Returns (T_new, fitness, rmse, n_corr), the metrics measured at the
+    input pose."""
+    p, j, valid, d2 = _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist, accel)
     fitness, rmse, n_corr = _metrics(valid, d2, src_mask, group)
     d = tgt_pts[j] - p
     R = se3.rot(T)
@@ -221,34 +224,37 @@ def registration_gicp(source: Cloud, target: Cloud, max_corr_dist, T_init,
     ``corr_method``: 'auto', 'band' and 'band_pallas' run the band sweep
     (kernel K1) in sorted space, ``q_tile`` sorted queries a tile (with a
     group, the unit in which the rows are split); 'brute' runs the exact
-    brute-force search (kernel K7) with full covariances; pcr_tpu's 'grid'
-    (a CPU hash grid) is not ported."""
+    brute-force search (kernel K7) and 'grid' the hash grid of
+    ``ops/grid_nn`` over the target (exact within max_dist), both with full
+    covariances.  pcr_tpu resolves 'auto' to 'grid' off the TPU; the port
+    runs the band sweep, the counterpart of its TPU default."""
     T0 = torch.as_tensor(T_init, dtype=torch.float32, device=source.device)
     max_dist = float(np.float32(max_corr_dist))
     args = (source, target, max_dist, T0, loss, gm_k, max_iteration, relative_fitness,
             relative_rmse, group)
     if corr_method in ("auto", "band", "band_pallas"):
         return _gicp_band_sorted(*args, q_tile=q_tile)
-    if corr_method == "brute":
-        return _gicp_brute(*args)
-    if corr_method == "grid":
-        raise NotImplementedError("corr_method='grid': ops/grid_nn is not ported")
+    if corr_method in ("brute", "grid"):
+        return _gicp_nn1(*args, grid=corr_method == "grid")
     raise ValueError(f"unknown corr_method {corr_method!r}")
 
 
-def _gicp_brute(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor, loss: str,
-                gm_k: float, max_iteration: int, relative_fitness: float,
-                relative_rmse: float, group=None) -> RegistrationResult:
-    """GICP over brute-force correspondences (pcr_tpu's non-band loop), with
-    the final metrics taken at the converged pose."""
+def _gicp_nn1(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor, loss: str,
+              gm_k: float, max_iteration: int, relative_fitness: float,
+              relative_rmse: float, group=None, grid: bool = False) -> RegistrationResult:
+    """GICP over brute-force or (``grid``) hash-grid correspondences
+    (pcr_tpu's non-band loop), with the final metrics taken at the
+    converged pose.  The grid is built once, over the whole target."""
     if group is not None:   # this rank's rows
         source = source[collectives.rank_block(source.capacity, group)]
     src_cov = _regularized_covariances(source)
     tgt_cov = _regularized_covariances(target)
+    accel = grid_nn.build_grid(target.points, target.mask, max_dist) if grid else None
 
     def step(T):
         return gicp_step(source.points, src_cov, source.mask, target.points, tgt_cov,
-                         target.mask, T, max_dist, loss=loss, gm_k=gm_k, group=group)
+                         target.mask, T, max_dist, loss=loss, gm_k=gm_k, group=group,
+                         accel=accel)
 
     # the convergence flag is read on the host every iteration, as in the
     # band loop below; with a group it comes from the summed metrics, so
@@ -265,7 +271,7 @@ def _gicp_brute(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor,
         if bool(done):
             break
     _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask,
-                                  T, max_dist)
+                                  T, max_dist, accel)
     fitness, rmse, n_corr = _metrics(valid, d2, source.mask, group)
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.tensor(iters, dtype=torch.int32, device=source.device))
@@ -397,33 +403,37 @@ def _gicp_band_sorted(
 
 
 def gicp_loss_log(source: Cloud, target: Cloud, max_corr_dist, T_init, loss: str = "l1",
-                  gm_k: float = 1.0, max_iteration: int = 100, corr_method: str = "brute"):
+                  gm_k: float = 1.0, max_iteration: int = 100, corr_method: str = "auto"):
     """Diagnostic GICP run with a per-iteration loss log (the reference plots
     Open3D's ``loss_log``, ``plot_rmse_vs_iteracoes``).
 
     Runs the full iteration budget, a fixed trip count with no early exit and
     no host read, and returns ``(RegistrationResult, log)`` with ``log =
     {"fitness": (I,), "inlier_rmse": (I,)}``, each entry measured at the pose
-    its Gauss-Newton step started from.  ``corr_method``: 'brute', the exact
-    1-NN (``knn.nn1``, kernel K7 on the card), the default here; pcr_tpu's
-    default 'grid' is exact within max_dist as well, but its hash grid is not
-    ported and raises.  Not the hot path: use ``registration_gicp``."""
-    if corr_method == "grid":
-        raise NotImplementedError("corr_method='grid': ops/grid_nn is not ported")
-    if corr_method != "brute":
+    its Gauss-Newton step started from.  ``corr_method``: 'grid' (the hash
+    grid of ``ops/grid_nn``, built once) or 'brute' (``knn.nn1``, kernel K7
+    on the card); both are exact within max_dist.  'auto', the default, is
+    pcr_tpu's default 'grid' on CPU tensors and 'brute' on the card, where
+    K7 takes about half the grid's time.  Not the hot path: use
+    ``registration_gicp``."""
+    if corr_method == "auto":
+        corr_method = "grid" if source.points.device.type == "cpu" else "brute"
+    if corr_method not in ("grid", "brute"):
         raise ValueError(f"unknown corr_method {corr_method!r}")
     max_dist = float(np.float32(max_corr_dist))
     T = torch.as_tensor(T_init, dtype=torch.float32, device=source.device)
     src_cov = _regularized_covariances(source)
     tgt_cov = _regularized_covariances(target)
+    accel = (grid_nn.build_grid(target.points, target.mask, max_dist)
+             if corr_method == "grid" else None)
     fits, rmses = [], []
     for _ in range(max_iteration):
         T, fit, rmse, _ = gicp_step(source.points, src_cov, source.mask, target.points, tgt_cov,
-                                    target.mask, T, max_dist, loss=loss, gm_k=gm_k)
+                                    target.mask, T, max_dist, loss=loss, gm_k=gm_k, accel=accel)
         fits.append(fit)
         rmses.append(rmse)
     _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask, T,
-                                  max_dist)
+                                  max_dist, accel)
     fitness, rmse, n_corr = _metrics(valid, d2, source.mask)
     res = RegistrationResult(T, fitness, rmse, n_corr,
                              torch.tensor(max_iteration, dtype=torch.int32, device=source.device))

@@ -56,12 +56,20 @@ def knn(query, ref, ref_mask, k: int, *, exclude_self: bool = False,
     """k-NN dispatch; see ``knn_exact`` for the output contract.
 
     'auto' resolves to 'exact', as pcr_tpu resolves it off the TPU; 'approx'
-    is ``knn_approx``; 'band' (pcr_tpu's sorted-band self-kNN) is not ported.
+    is ``knn_approx``.  'band' (pcr_tpu's sorted-band self-kNN,
+    ``knn_self_band``) needs ``query is ref`` and runs ``knn_exact``:
+    pcr_tpu's one slab a tile misses the neighbours of sparse rows, and a
+    slab widened until it holds them returns knn_exact's neighbours (ROADMAP
+    F7), so its ``band``, ``recall`` and ``r_chunk`` have no effect.
     """
+    if method == "band":
+        if query is not ref:
+            raise ValueError("band kNN requires query is ref (self-neighborhoods)")
+        for name in ("band", "recall", "r_chunk"):
+            kw.pop(name, None)
+        method = "exact"
     if method == "auto":
         method = "exact"
-    if method == "band":
-        raise NotImplementedError("knn(method='band'): band_nn.knn_self_band is not ported")
     if method == "approx":
         return knn_approx(query, ref, ref_mask, k, exclude_self=exclude_self, **kw)
     if method != "exact":

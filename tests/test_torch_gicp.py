@@ -1,6 +1,7 @@
-"""GICP (pcr_tpu_torch.models.gicp, band correspondence via K1's plain
-version on CPU) held against pcr_tpu.models.gicp._registration_gicp with
-corr_method='band' on the SAME pyramid: pcr_tpu builds it and
+"""GICP (pcr_tpu_torch.models.gicp: band correspondence via K1's plain
+version on CPU, brute force via K7's, and the hash grid) held against
+pcr_tpu.models.gicp._registration_gicp with the same corr_method on the
+SAME pyramid: pcr_tpu builds it and
 ``cloud.from_arrays`` hands its leaves to the port, so GICP is tested apart
 from preprocessing."""
 
@@ -197,7 +198,9 @@ def test_gicp_brute_matches_pcr_tpu(pyramids, scale):
 
 def test_covariances_from_normals_and_dispatch(rng):
     """The plane-disk covariance of a unit normal equals pcr_tpu's; brute
-    GICP takes it when a cloud has no covariances; 'grid' is not ported."""
+    and grid GICP take it when a cloud has no covariances, and grid lands
+    where pcr_tpu's grid does on the same clouds (1e-6, iterations equal);
+    unknown methods raise."""
     n = rng.normal(size=(32, 3)).astype(np.float32)
     n /= np.linalg.norm(n, axis=1, keepdims=True)
     np.testing.assert_allclose(t_gicp.covariances_from_normals(torch.as_tensor(n)).numpy(),
@@ -209,10 +212,46 @@ def test_covariances_from_normals_and_dispatch(rng):
     res = t_gicp.registration_gicp(src, src, 0.5, np.eye(4, dtype=np.float32),
                                    corr_method="brute")
     assert float(res.fitness) == 1.0 and int(res.iterations) <= 2
-    with pytest.raises(NotImplementedError):
-        t_gicp.registration_gicp(src, src, 0.5, np.eye(4), corr_method="grid")
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, 3] = [0.02, -0.01, 0.03]
+    res_g = t_gicp.registration_gicp(src, src, 0.5, T0, corr_method="grid")
+    c_j = j_cloud.from_numpy(pts, 256)
+    c_j = c_j.with_(covariances=j_gicp.covariances_from_normals(jnp.asarray(src.normals.numpy())))
+    res_j = j_gicp._registration_gicp(c_j, c_j, 0.5, jnp.asarray(T0), corr_method="grid")
+    np.testing.assert_allclose(res_g.transformation.numpy(), np.asarray(res_j.transformation),
+                               atol=1e-6)
+    assert int(res_g.iterations) == int(res_j.iterations)
+    assert float(res_g.fitness) == float(res_j.fitness) == 1.0
     with pytest.raises(ValueError):
         t_gicp.registration_gicp(src, src, 0.5, np.eye(4), corr_method="kdtree")
+
+
+@pytest.mark.parametrize("scale", [0, 1])
+def test_gicp_grid_matches_pcr_tpu(pyramids, scale):
+    """registration_gicp(corr_method='grid') against pcr_tpu's grid loop on
+    the same pyramid: poses within 1e-5, iteration counts equal, fitness and
+    rmse within 1e-5, the same correspondence count.  Both hash grids return
+    the same neighbours with the same exact d2 (tests/test_torch_grid_nn.py),
+    so only the float32 sums of the normal equations differ in order; the
+    grid's result is brute force's (both exact within max_dist)."""
+    pyr_s, pyr_t, T0, _ = pyramids
+    dist = j_ms.max_correspondence_distances(j_ms.create_scales(2))[scale]
+    res_j = j_gicp._registration_gicp(pyr_s[scale], pyr_t[scale], dist,
+                                      jnp.asarray(T0, jnp.float32), max_iteration=25,
+                                      corr_method="grid")
+    src, tgt = _to_port(pyr_s[scale]), _to_port(pyr_t[scale])
+    res_t = t_gicp.registration_gicp(src, tgt, dist, T0.astype(np.float32),
+                                     corr_method="grid", max_iteration=25)
+    np.testing.assert_allclose(res_t.transformation.double().numpy(),
+                               np.asarray(res_j.transformation, np.float64), atol=1e-5)
+    assert int(res_t.iterations) == int(res_j.iterations) < 25
+    assert abs(float(res_t.fitness) - float(res_j.fitness)) <= 1e-5
+    assert abs(float(res_t.inlier_rmse) - float(res_j.inlier_rmse)) <= 1e-5
+    assert float(res_t.num_correspondences) == float(res_j.num_correspondences)
+    res_b = t_gicp.registration_gicp(src, tgt, dist, T0.astype(np.float32),
+                                     corr_method="brute", max_iteration=25)
+    np.testing.assert_allclose(res_t.transformation.numpy(), res_b.transformation.numpy(),
+                               atol=1e-6)
 
 
 def _eval_clouds(rng):

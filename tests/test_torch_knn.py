@@ -180,10 +180,71 @@ def test_nn1_plain_kernel_first_minimum_on_ties(rng):
 
 
 def test_knn_dispatch_refusals(rng):
+    """'band' runs knn_exact (equal on a cloud of 50, r_chunk ignored) and,
+    as in pcr_tpu, needs query is ref; unknown methods raise."""
     x, mask = _data(rng, 3, n=50, pad=0)
-    with pytest.raises(NotImplementedError):
-        t_knn.knn(_t(x), _t(x), _t(mask), 4, method="band")
+    xt = _t(x)
+    d, i = t_knn.knn(xt, xt, _t(mask), 4, method="band", r_chunk=64)
+    d_e, i_e = t_knn.knn_exact(xt, xt, _t(mask), 4)
+    np.testing.assert_array_equal(d.numpy()[mask], d_e.numpy()[mask])
+    np.testing.assert_array_equal(i.numpy()[mask], i_e.numpy()[mask])
     with pytest.raises(ValueError):
-        t_knn.knn(_t(x), _t(x), _t(mask), 4, method="kdtree")
+        t_knn.knn(xt, _t(x), _t(mask), 4, method="band")
     with pytest.raises(ValueError):
-        t_knn.nn1(_t(x), _t(x), _t(mask), method="grid")
+        t_knn.knn(xt, xt, _t(mask), 4, method="kdtree")
+    with pytest.raises(ValueError):
+        t_knn.nn1(xt, xt, _t(mask), method="grid")
+
+
+def _band_pair(x, mask, k, exclude_self, q_tile, band):
+    """(port, pcr_tpu, knn_exact) results of the band self-kNN on x."""
+    xj = jnp.asarray(x)
+    d_j, i_j = j_knn.knn(xj, xj, jnp.asarray(mask), k, exclude_self=exclude_self,
+                         method="band", q_tile=q_tile, band=band)
+    xt = _t(x)
+    d_t, i_t = t_knn.knn(xt, xt, _t(mask), k, exclude_self=exclude_self, method="band",
+                         q_tile=q_tile, band=band, recall=0.5)
+    d_e, i_e = t_knn.knn_exact(xt, xt, _t(mask), k, exclude_self=exclude_self)
+    return (d_t.numpy(), i_t.numpy()), (np.asarray(d_j), np.asarray(i_j)), \
+        (d_e.numpy(), i_e.numpy())
+
+
+def _recall(i_a, i_b):
+    return (i_a[:, :, None] == i_b[:, None, :]).any(axis=2).mean()
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_knn_band_matches_pcr_tpu(rng, exclude_self):
+    """knn(method='band') against pcr_tpu's on a cloud whose every slab is
+    the whole cloud (700 rows, band 512), where pcr_tpu's band search is
+    exact: distances within 1e-6 relative (both select by the expanded d2
+    and re-score exactly), index recall at least 0.999 (a tie may be listed
+    either way), self excluded."""
+    x, mask = _data(rng, 3, n=700, pad=60)
+    (d_t, i_t), (d_j, i_j), _ = _band_pair(x, mask, 16, exclude_self, 128, 512)
+    d_t, i_t, d_j, i_j = d_t[mask], i_t[mask], d_j[mask], i_j[mask]
+    assert bool((d_t[:, 1:] >= d_t[:, :-1]).all())
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-6, atol=1e-9)
+    assert _recall(i_t, i_j) >= 0.999
+    rows = np.nonzero(mask)[0][:, None]
+    assert (i_t == rows).any(axis=1).all() != exclude_self
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_knn_band_is_exact_where_pcr_tpu_misses(rng, exclude_self):
+    """3000 rows in slabs of 2 * 256 (q_tile 128): pcr_tpu's slab, rounded
+    down to a band block, leaves every tile in the upper half of a block no
+    rows above it and misses neighbours (ROADMAP F7); the port's band kNN is
+    knn_exact's, bit for bit, and agrees with pcr_tpu's wherever pcr_tpu's
+    distances are knn_exact's (within 1e-6 relative, index recall at least
+    0.999, as above)."""
+    x, mask = _data(rng, 3, n=3000, pad=0)
+    k = 24
+    (d_t, i_t), (d_j, i_j), (d_e, i_e) = _band_pair(x, mask, k, exclude_self, 128, 256)
+    d_t, i_t, d_j, i_j, d_e, i_e = (a[mask] for a in (d_t, i_t, d_j, i_j, d_e, i_e))
+    np.testing.assert_array_equal(d_t, d_e)
+    np.testing.assert_array_equal(i_t, i_e)
+    pcr_exact = (np.abs(d_j - d_e) <= 1e-6 * d_e).all(axis=1)
+    assert 0.1 < (~pcr_exact).mean() < 0.9                   # pcr_tpu misses neighbours
+    np.testing.assert_allclose(d_t[pcr_exact], d_j[pcr_exact], rtol=1e-6, atol=1e-9)
+    assert _recall(i_t[pcr_exact], i_j[pcr_exact]) >= 0.999

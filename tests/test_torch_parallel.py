@@ -8,8 +8,8 @@ tests/test_parallel.py).
 The port's side runs in spawned ranks (tests/torch_parallel_worker.py, which
 imports no JAX): one spawn of 4 ranks for every function of the four
 modules and stage 2 on a (2, 2) mesh, one of 2 ranks for the runners, the
-point-sharded ``run_pair`` and the CLI.  Both start before the parent
-computes the references, so the two overlap.  Every group has a 90 s
+point-sharded grid GICP and ``run_pair`` and the CLI.  Both start before the
+parent computes the references, so the two overlap.  Every group has a 90 s
 collective timeout and a FileStore rendezvous under ``tmp_path``; the parent
 kills the ranks when one fails or when they overrun.  ~75 s on one worker
 with a warm JAX compilation cache.
@@ -17,8 +17,9 @@ with a warm JAX compilation cache.
 Tolerances, the port's sharded form against its unsharded form (pcr_tpu's
 tests/test_parallel.py bounds for the same pairs): GICP 1e-5; FGR and its
 fitness 1e-4 (on JAX's uniforms); features, normals and covariances 1e-5
-(each scan runs the unsharded function, so 0 is expected); point-sharded GICP 1e-5 and
-M-GICP 5e-5; the 2-D forms 5e-4; nn1 / knn d2 rtol 1e-6 with equal rows;
+(each scan runs the unsharded function, so 0 is expected); point-sharded
+GICP 1e-5 (the grid's on 2 ranks 1e-6) and M-GICP 5e-5; the 2-D forms 5e-4;
+nn1 / knn d2 rtol 1e-6 with equal rows;
 pose-graph nodes 5e-4; the runners on a pair mesh 1e-6 in stage 2 (each
 pair runs the same operations as in the run without a mesh, so 0 is
 expected)
@@ -26,8 +27,9 @@ and 1e-4 in stage 1 (a chunk's GNC is batched over a rank's block, not over
 the chunk); stage 2 on a (2, 2) mesh 5e-4.
 
 Against pcr_tpu's sharded forms, the bounds the port's unsharded tests hold
-the same functions to: GICP 1e-4 (tests/test_torch_gicp.py, band and brute
-against band and brute); M-GICP 5e-3 (tests/test_torch_stage2.py: there
+the same functions to: GICP 1e-4 (tests/test_torch_gicp.py, band, brute
+and grid against band, brute and grid); M-GICP 5e-3
+(tests/test_torch_stage2.py: there
 pcr_tpu resolves 'auto' to its CPU hash grid, the port runs the band sweep,
 and pcr_tpu builds its own pyramids); FGR 1e-4 on JAX's uniforms
 (tests/test_torch_batched.py); banded features as tests/test_torch_batched.py
@@ -191,6 +193,7 @@ def run(tmp_path_factory):
                          out=str(tmp / "stage1")),
           "stage2": dict(scans=circ["big"], init=circ["init"], capacity=BIG, cfg=STAGE2,
                          out=str(tmp / "stage2")),
+          "single": x4["single"],
           "cli": dict(root=str(root), n=N, bucket=1024, pair_bucket=BIG, small=SMALL,
                       out=str(tmp), pair_cfg=PAIR, argv=_cli_argv(str(tmp)))}
     ranks4 = worker.start(4, "functions", x4, tmp / "ranks4")
@@ -260,7 +263,7 @@ def _port_references(x, circ, tmp) -> dict:
     out["knn"] = [t.numpy() for t in t_knn.knn_exact(n["q"][:512], n["r"][:2048],
                                                      n["m"][:2048], 8)]
     s = x["single"]
-    for method in ("brute", "band"):
+    for method in ("brute", "band", "grid"):
         out[f"point_gicp_{method}"] = res_np(t_gicp.registration_gicp(
             cloud(s, "s_"), cloud(s, "t_"), 0.3, s["T0"], corr_method=method, max_iteration=10,
             q_tile=Q_TILE))
@@ -364,8 +367,9 @@ def _jax_references(j) -> dict:
     out["nn1"] = [np.asarray(a) for a in j_pts.sharded_nn1(q4, q, r, m)]
     out["knn"] = [np.asarray(a) for a in j_pts.sharded_knn(q4, q[:512], r[:2048], m[:2048], 8)]
     src1, tgt1, T01, _, pyr_s, pyr_t = j["single"]
-    out["point_gicp_brute"] = res(j_pts.point_sharded_gicp(
-        q4, src1, tgt1, 0.3, T01, corr_method="brute", max_iteration=10))
+    for method in ("brute", "grid"):
+        out[f"point_gicp_{method}"] = res(j_pts.point_sharded_gicp(
+            q4, src1, tgt1, 0.3, T01, corr_method=method, max_iteration=10))
     out["point_mgicp"] = res(j_pts.point_sharded_multiscale_gicp(
         q4, pyr_s, pyr_t, T01, n_scales=2, iterations=8, corr_method="band"))
     src2, tgt2, T02, _ = j["pairs2"]
@@ -566,13 +570,14 @@ def test_sharded_knn(run):
     assert (np.diff(d, axis=1) >= 0).all()
 
 
-@pytest.mark.parametrize("method", ["brute", "band"])
+@pytest.mark.parametrize("method", ["brute", "band", "grid"])
 def test_point_sharded_gicp(run, method):
     """Source rows over 4 ranks, (H, g) and the metric sums summed each
     iteration: 1e-5 of the unsharded registration_gicp (pose and fitness),
-    the same iterations; brute within 1e-4 of pcr_tpu's point_sharded_gicp;
-    within 1 cm of ground truth.  The band sweep's tiles of Q_TILE rows give
-    every rank real rows."""
+    the same iterations; brute and grid within 1e-4 of pcr_tpu's
+    point_sharded_gicp of the same method; within 1 cm of ground truth.  The
+    band sweep's tiles of Q_TILE rows give every rank real rows; the grid is
+    built over the whole target on every rank."""
     key = f"point_gicp_{method}"
     s = run["x4"]["single"]
     _assert_real_rows_on_every_rank(int(s["s_mask"].sum()), Q_TILE, 4)
@@ -581,11 +586,27 @@ def test_point_sharded_gicp(run, method):
     np.testing.assert_allclose(got["transformation"], want["transformation"], atol=1e-5)
     np.testing.assert_allclose(got["fitness"], want["fitness"], atol=1e-5)
     assert int(got["iterations"]) == int(want["iterations"])
-    if method == "brute":
+    if method != "band":
         np.testing.assert_allclose(got["transformation"],
-                                   run["jax"]["point_gicp_brute"]["transformation"], atol=1e-4)
+                                   run["jax"][key]["transformation"], atol=1e-4)
     _, dt = se3.pose_errors(got["transformation"].astype(np.float64), run["j"]["single"][3])
     assert float(dt) < 0.01
+
+
+def test_point_sharded_grid_on_two_ranks(run):
+    """The grid GICP with the source rows over a points axis of 2 (the
+    pipeline spawn): within 1e-6 of one device (pose, fitness, rmse), the
+    same iterations and correspondences, on both ranks; both halves of the
+    source hold real rows."""
+    s = run["x4"]["single"]
+    half = s["s_mask"].shape[0] // 2
+    assert s["s_mask"][:half].any() and s["s_mask"][half:].any()
+    _same_on_every_rank(run["out2"], "point_gicp_grid")
+    got, want = run["out2"][0]["point_gicp_grid"], run["port"]["point_gicp_grid"]
+    for key in ("transformation", "fitness", "inlier_rmse"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-6, err_msg=key)
+    assert int(got["iterations"]) == int(want["iterations"])
+    assert float(got["num_correspondences"]) == float(want["num_correspondences"])
 
 
 def test_point_sharded_multiscale_gicp(run):

@@ -11,9 +11,10 @@ Tolerances:
     takes t through float32, the port's keeps float64 on numpy; the PLY
     prints six decimals, so a vertex may differ by one unit in the last);
   * plots: the file exists and is a non-empty image (matplotlib draws them);
-  * gicp_loss_log: logs and poses within 1e-5 of pcr_tpu's 'brute' and its
-    default 'grid' (both exact within max_corr_dist, as the port's K7 path
-    is: the same correspondences, float32 sums in another order).
+  * gicp_loss_log: logs and poses within 1e-5 of pcr_tpu's, 'brute'
+    against 'brute' and the default on CPU tensors ('grid') against 'grid'
+    (each exact within max_corr_dist: the same correspondences, float32
+    sums in another order).
 """
 
 import os
@@ -155,7 +156,9 @@ def test_gicp_loss_log_matches_pcr_tpu(circuit, j_method):
     E = np.eye(4)
     E[:3, 3] = [0.05, -0.04, 0.02]
     T0 = (E @ gt[0]).astype(np.float32)
-    res, log = t_gicp.gicp_loss_log(src_t, tgt_t, 0.5, T0, max_iteration=12)
+    # on CPU tensors the port's default is pcr_tpu's: 'grid'
+    kw = {} if j_method == "grid" else {"corr_method": j_method}
+    res, log = t_gicp.gicp_loss_log(src_t, tgt_t, 0.5, T0, max_iteration=12, **kw)
     res_j, log_j = j_gicp.gicp_loss_log(src_j, tgt_j, 0.5, T0, max_iteration=12,
                                         corr_method=j_method)
     assert log["fitness"].shape == log["inlier_rmse"].shape == (12,)
@@ -169,5 +172,5 @@ def test_gicp_loss_log_matches_pcr_tpu(circuit, j_method):
     assert int(res.iterations) == int(res_j.iterations) == 12
     # the loss falls as the pose converges
     assert float(log["inlier_rmse"][-1]) < float(log["inlier_rmse"][0])
-    with pytest.raises(NotImplementedError):
-        t_gicp.gicp_loss_log(src_t, tgt_t, 0.5, T0, corr_method="grid")
+    with pytest.raises(ValueError):
+        t_gicp.gicp_loss_log(src_t, tgt_t, 0.5, T0, corr_method="kdtree")

@@ -192,7 +192,7 @@ def task_functions(x: dict) -> dict:
     out["knn"] = [t.numpy() for t in point_sharding.sharded_knn(qm, q[:512], ref[:2048],
                                                                 m[:2048], 8)]
     s = x["single"]
-    for method in ("brute", "band"):
+    for method in ("brute", "band", "grid"):
         out[f"point_gicp_{method}"] = result_np(point_sharding.point_sharded_gicp(
             qm, cloud(s, "s_"), cloud(s, "t_"), 0.3, s["T0"], corr_method=method,
             max_iteration=10, q_tile=s["q_tile"]))
@@ -270,10 +270,11 @@ def _stage2(x: dict, m):
 
 
 def task_pipeline(x: dict) -> dict:
-    """The runners and the CLI on 2 ranks."""
+    """The runners, the grid GICP on a points axis of 2 and the CLI on 2
+    ranks."""
     from pcr_tpu_torch import __main__ as cli
     from pcr_tpu_torch import pipeline
-    from pcr_tpu_torch.parallel import mesh
+    from pcr_tpu_torch.parallel import mesh, point_sharding
     from pcr_tpu_torch.utils import cloud as cloud_mod
     from pcr_tpu_torch.utils import poses_io
 
@@ -298,6 +299,9 @@ def task_pipeline(x: dict) -> dict:
     cloud_mod.BUCKETS["Courtyard"] = c["pair_bucket"]
     pipeline.PipelineConfig = functools.partial(pipeline.PipelineConfig, **c["small"])
     qm = mesh.make_point_mesh(2, device="cpu")
+    s = x["single"]
+    out["point_gicp_grid"] = result_np(point_sharding.point_sharded_gicp(
+        qm, cloud(s, "s_"), cloud(s, "t_"), 0.3, s["T0"], corr_method="grid", max_iteration=10))
     pcfg = pipeline.PipelineConfig(output_root=c["out"] + "/run_pair", **c["pair_cfg"])
     out["run_pair"] = pipeline.run_pair(pcfg, 2, 0, point_mesh=qm, device="cpu")
     out["cli"] = {}
