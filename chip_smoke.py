@@ -32,7 +32,8 @@ Phases (any failure ends the run with a non-zero exit code):
   7. stage 1 — pipeline.run_stage1_fgr (banded features, mutual matching,
                tuple test, 300 GNC iterations) over the circuit, cold and
                warm; every pair within 0.5 m / 5 deg of ground truth, and K1,
-               K4, K5 and K6 must each have been launched by the warm run;
+               K4, K5, K6 and K8 must each have been launched by the warm run,
+               K8 once a pair;
   8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses, the
                retry ladder on; every pair within 3 cm / 0.2 deg;
   9. stage 3 — pipeline.run_stage3_global, all four methods (LUM, SLERP,
@@ -40,22 +41,27 @@ Phases (any failure ends the run with a non-zero exit code):
                card over K1's band-NN information matrices) on the stage-2
                poses of phase 8: each trajectory within 5 cm of ground truth
                (aligned ATE), the card's pose graph within 1e-4 of the same
-               graph solved on the CPU, K1 launched; cold and warm walls and
-               each method's seconds;
+               graph solved on the CPU, K1 and K9 launched; cold and warm
+               walls and each method's seconds;
  10. run_full — pipeline.run_full on the default PipelineConfig (stages 1 -> 3
                in one window, the main path): its stage-1 and stage-2 poses
-               equal phases 7 and 8's, K1-K6 each launched; its wall beside
-               the staged runners' sum;
+               equal phases 7 and 8's, K1-K6, K8 and K9 each launched; its
+               wall beside the staged runners' sum;
  11. batched — run_stage1_fgr and run_stage2_mgicp at the default
                batch_size=2 (stage 1 in chunks of pairs, one GNC over a
                chunk; stage 2 streams at every batch size), cold and warm:
                stage 1 within 0.5 m / 5 deg, stage 2 within 3 cm / 0.2 deg,
-               K1, K4-K6 and K1-K3 launched; both warm walls beside the
-               streamed ones;
+               K1, K4-K6, K8 (once a chunk) and K1-K3 launched; both warm
+               walls beside the streamed ones;
  12. NCLT stage 3 — the 901-pose circuit of outputs/NCLT_poses.npz: the
                closed forms held to the file's trajectories (1e-6), the pose
                graph on the card with identity information matrices, timed
-               (iterations, ms an iteration, the block-Thomas solves' share);
+               (iterations, ms an iteration, the block-Thomas solves' share),
+               K9 launched twice an LM iteration; the circuit with the
+               information of test_global_optimization_at_n901_matches
+               through K9 and on the plain Thomas loops, both walls, held at
+               that test's bounds (pruning, mu, final costs, edge mask,
+               circuit consistency);
  13. stage-1 split — features ms/scan; matching, tuple test, GNC and
                evaluation ms/pair; the GNC of two pairs one after another
                beside one batched GNC over both;
@@ -135,23 +141,40 @@ Phases (any failure ends the run with a non-zero exit code):
                full_registration_batched (batch 2; cold, then again after
                the serial builder, the two graphs bit for bit equal) and
                full_registration, each builder's wall, edges/s, retried
-               pairs, peak memory and K1-K7 launches (K1-K3 must be
+               pairs, peak memory and K1-K9 launches (K1-K3 and K8 must be
                launched); every edge's gate fitness and error against
                ground truth (odometry edges within 3 cm / 0.2 deg);
                global_optimization of the batched graph (every node within
                8 cm, aligned ATE); the serial graph against the batched one
                on the pairs neither builder retried (edge_T 5e-4, nodes
                5e-3, information rtol 0.05 / atol 50).
-The line before the last is the kernels' JSON record (``launches``: K1-K6
-from the CLI's ``full`` run of phase 18, K7 from the brute GICP;
-``max_abs_err`` of K4 over the cloud's real rows);
+ 23. loop kernels — K8 (the GNC, csrc/loops.cu) on the arguments phases 7,
+               11 and 22 gave it (NCLT stage 1 at batch 1 and 2, relative
+               scale; the Facade builder's chunk of 2 at 90112 rows, absolute
+               scale) and K9 (block-Thomas) on those of phases 9 and 12
+               (m = 7 and the NCLT m = 900), each against its plain version
+               on the same tensors: K8's normalised poses within 1e-4 and the
+               poses they denormalise to within 5 mm / 0.02 deg; K9's refined
+               relative residual within 10x the plain solve's (or under
+               1e-6); each kernel run twice bit for bit; kernel ms, plain ms
+               and host wall, bound, and for K9 at m = 900 a dense
+               torch.linalg.solve of the (6m)^2 system.
+The line before the last is the kernels' JSON record (``launches``: K1-K6,
+K8 and K9 from the CLI's ``full`` run of phase 18, K7 from the brute GICP;
+``max_abs_err`` of K4 over the cloud's real rows, of K8 over the normalised
+poses, of K9 the refined solve's relative residual; the times of K8 at the
+main path's shape, one NCLT pair, and of K9 at m = 900);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
-bytes (each input read once, each output written once) over 3.35 TB/s and
+bytes (each input read once, each output written once; K8 needs p and q
+only on the rows of nonzero weight) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
 and one compare (9 operations) per (query, candidate) pair and the per-pair
-work of the pairs this run's data keeps; ``library_ms`` is null for K1-K6,
-as no single PyTorch call computes a banded neighbourhood reduction, and
-for K7 the time of torch.cdist (direct formula) and its row minimum.
+work of the pairs this run's data keeps (K8: 70 operations a kept row a
+step and about 400 a pair a step; K9: the elimination's count a block
+step); ``library_ms`` is null for K1-K6 and K8, as no single PyTorch call
+computes a banded neighbourhood reduction or the GNC, for K7 the time of
+torch.cdist (direct formula) and its row minimum, and for K9 that of
+torch.linalg.solve on the dense (6m)^2 system.
 """
 
 from __future__ import annotations
@@ -657,30 +680,70 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
 
 
 STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments")
-STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh")
+STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh", "gnc")
 BRUTE_KERNELS = ("nn1",)
 
 
-def reset_launches() -> None:
+def _launch_counts() -> list:
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
-    for counts in (nk.LAUNCHES, fk.LAUNCHES):
+    return [nk.LAUNCHES, fk.LAUNCHES, lk.LAUNCHES]
+
+
+def reset_launches() -> None:
+    for counts in _launch_counts():
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
-    from pcr_tpu_torch.ops.kernels import feature_kernels as fk
-    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
-
-    return {**nk.LAUNCHES, **fk.LAUNCHES}
+    return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
 def check_launched(launches: dict, names, what: str) -> None:
     for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by {what}")
+
+
+LOOP_INPUTS: dict = {}   # (kernel, case) -> a path's first arguments, for phase 23
+
+
+@contextlib.contextmanager
+def watching(module, name: str, calls: list | None = None, keep=None):
+    """While the block runs, append to ``calls`` at every call of
+    ``module.name`` and keep its first call's arguments as
+    LOOP_INPUTS[keep]."""
+    original = getattr(module, name)
+
+    def watched(*args, **kw):
+        if calls is not None:
+            calls.append(name)
+        if keep is not None:
+            LOOP_INPUTS.setdefault(keep, args)
+        return original(*args, **kw)
+
+    setattr(module, name, watched)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def plain_loops():
+    """While the block runs, the loop kernels' wrappers are their plain
+    versions (the loops the port ran before K8 and K9), on the card."""
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
+
+    wrappers = lk.gnc, lk.block_thomas
+    lk.gnc, lk.block_thomas = lk.gnc_reference, lk.block_thomas_reference
+    try:
+        yield
+    finally:
+        lk.gnc, lk.block_thomas = wrappers
 
 
 def check_pose_files(rel_dir: Path, out: np.ndarray) -> None:
@@ -964,17 +1027,29 @@ def phase_stage1(clouds, gt, batch_size: int = 1, label: str = "stage 1"):
     """Stage 1 over the circuit, cold and warm; every pair within 0.5 m /
     5 deg.  Returns (poses, the warm run's launch counts and wall seconds)."""
     from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.models import fgr
 
+    chunks = []
     with tempfile.TemporaryDirectory() as tmp:
         def one(run):
             cfg = dataclasses.replace(stage1_config(str(Path(tmp) / run)),
                                       batch_size=batch_size)
             metrics = pipeline.PairMetrics()
-            out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
+            chunks.clear()
+            with watching(fgr, "batched_registration_fgr", calls=chunks), \
+                    watching(fgr, "fgr_from_correspondences",
+                             keep=("gnc", f"NCLT stage 1, batch {batch_size}")):
+                out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
         (cfg, metrics, out), launches, wall = timed_runs(label, ("cold", "warm"), one)
         check_pose_files(Path(cfg.out_dir("relative_poses_FGR")), out)
+    # K8 once a pair streamed, once a chunk batched
+    want = len(chunks) if batch_size > 1 else N_SCANS
+    print(f"{label}: K8 (gnc) launches {launches['gnc']}, "
+          f"{'chunks' if batch_size > 1 else 'pairs'} {want}")
+    if launches["gnc"] != want:
+        raise AssertionError(f"{label}: K8 launched {launches['gnc']} times for {want} GNCs")
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
         e_t, e_r = pose_error(out[k], gt[k])
@@ -1374,7 +1449,7 @@ STAGE3_METHODS = ("LUM", "SLERP", "SLERP_LUM", "pose_graph")
 MAX_STAGE3_ATE_M = 0.05       # aligned ATE of each stage-3 trajectory against ground truth
 MAX_PG_CARD_CPU = 1e-4        # the card's 8-node pose graph against the same graph on the CPU
 MAX_CLOSED_FORM_FILE = 1e-6   # closed forms against outputs/NCLT_poses.npz
-MAIN_KERNELS = STAGE2_KERNELS + ("moments", "spfh", "fpfh")
+MAIN_KERNELS = STAGE2_KERNELS + ("moments", "spfh", "fpfh", "gnc", "block_thomas")
 
 
 def synced(fn):
@@ -1399,18 +1474,21 @@ def phase_stage3(clouds, gt, rel2) -> dict:
     from pcr_tpu_torch import pipeline
     from pcr_tpu_torch.models import evaluate
     from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.utils import se3
 
     with tempfile.TemporaryDirectory() as tmp:
         def one(run):
             cfg = stage2_config(str(Path(tmp) / run))
-            results = pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds,
-                                                 n=N_SCANS, methods=STAGE3_METHODS)
+            with watching(lk, "block_thomas",
+                          keep=("block_thomas", f"{N_SCANS}-node circuit, m = {N_SCANS - 1}")):
+                results = pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds,
+                                                     n=N_SCANS, methods=STAGE3_METHODS)
             with open(Path(cfg.out_dir("metrics")) / "stage3_consistency.json") as fh:
                 return cfg, results, json.load(fh)
 
         (cfg, results, record), launches, wall = timed_runs("stage 3", ("cold", "warm"), one)
-    check_launched(launches, ("nn1_band",), "stage 3")
+    check_launched(launches, ("nn1_band", "block_thomas"), "stage 3")
     print(f"stage 3: the four methods over {N_SCANS} scans; pose graph "
           f"{record['pose_graph']['optimizer']}")
     split = {name: synced(lambda f=f: f(rel2))[1] for name, f in (
@@ -1453,11 +1531,15 @@ def phase_stage3_nclt(dev) -> None:
     closed forms on the host, held to the file's trajectories; the pose
     graph on the card with identity information matrices, timed, with its
     iterations, ms an iteration and the share of one block-Thomas solve
-    pair (timed alone at the same shape)."""
+    pair (timed alone at the same shape), K9 launched twice an LM
+    iteration; then the circuit with the information of
+    tests/test_torch_pose_graph.py::test_global_optimization_at_n901_matches
+    through K9 and on the plain Thomas loops, held at that test's bounds."""
     import torch
 
     from pcr_tpu_torch.models import evaluate
     from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.utils import se3
 
     z = np.load(ROOT / "outputs" / "NCLT_poses.npz")
@@ -1472,26 +1554,39 @@ def phase_stage3_nclt(dev) -> None:
         print(f"NCLT {name}: {sec * 1e3:.1f} ms on the host, {err:.2e} from {key}")
         if not err < MAX_CLOSED_FORM_FILE:
             raise AssertionError(f"NCLT {name} is {err} off the file's {key}")
-    graph = pose_graph.build_circuit_graph(se3.relative_to_absolute_standard(rel), rel,
-                                           np.tile(np.eye(6, dtype=np.float32), (n, 1, 1)),
-                                           device=dev)
-    (out, info), wall = synced(lambda: pose_graph.global_optimization(
-        graph, max_correspondence_distance=0.2, return_info=True))
+    graph = nclt_graph(rel, dev, np.eye(6, dtype=np.float32))
+    reset_launches()
+    with watching(lk, "block_thomas", keep=("block_thomas", f"NCLT circuit, m = {n - 1}")):
+        (out, info), wall = synced(lambda: pose_graph.global_optimization(
+            graph, max_correspondence_distance=0.2, return_info=True))
+    launches = read_launches()
     its = info["pass1_iterations"] + info["pass2_iterations"]
+    if launches["block_thomas"] != 2 * its:
+        raise AssertionError(f"NCLT pose graph: K9 launched {launches['block_thomas']} times "
+                             f"in {its} LM iterations")
     l = torch.ones(n, device=dev)
     diag, off, b = pose_graph._build_tridiag(graph, graph.nodes, l)
     D, U, rhs = diag[1:], off[1 : n - 1], b[1:]
     thomas = statistics.median(
         synced(lambda: pose_graph._block_thomas_solve(D, U, rhs))[1] for _ in range(5))
+    thomas_plain = statistics.median(
+        synced(lambda: lk.block_thomas_reference(D, U, rhs))[1] for _ in range(3))
     blocks = statistics.median(
         synced(lambda: pose_graph._build_tridiag(graph, graph.nodes, l))[1] for _ in range(5))
     ms_it = wall / its * 1e3
     print(f"NCLT pose graph (n={n}, identity information, card): {wall:.3f} s, iterations "
-          f"{info['pass1_iterations']} + {info['pass2_iterations']}, {ms_it:.1f} ms/iteration; "
-          f"one block-Thomas solve {thomas * 1e3:.1f} ms (two an iteration: "
-          f"{2 * thomas * 1e3 / ms_it:.0%} of it), Hessian blocks {blocks * 1e3:.1f} ms; {info}")
+          f"{info['pass1_iterations']} + {info['pass2_iterations']}, {ms_it:.1f} ms/iteration, "
+          f"K9 launches {launches['block_thomas']}; one block-Thomas solve "
+          f"{thomas * 1e3:.2f} ms (two an iteration: {2 * thomas * 1e3 / ms_it:.0%} of it; "
+          f"the plain loops {thomas_plain * 1e3:.1f} ms), Hessian blocks "
+          f"{blocks * 1e3:.1f} ms; {info}")
     c = evaluate.circuit_edge_consistency(out.nodes.double().cpu().numpy(), rel,
                                           convention="standard")
+    # both passes stop at the 100-iteration cap on this graph, at costs that
+    # float32 rounding decides (tools/pose_graph_rounding.py): K9 is held to
+    # the plain loops on the test's own graph, which converges
+    pose_graph_pair("test_global_optimization_at_n901_matches's information", nclt_graph(
+        rel, dev, np.diag([2e6, 2e6, 2e6, 2e4, 2e4, 2e4]).astype(np.float32)), rel)
     raw = evaluate.circuit_edge_consistency(se3.relative_to_absolute_standard(rel), rel,
                                             convention="standard")
     print(f"NCLT pose graph: closure edge {raw['dt_closure_edge_m']:.3f} -> "
@@ -1500,6 +1595,63 @@ def phase_stage3_nclt(dev) -> None:
     if not (torch.isfinite(out.nodes).all() and info["pruned_edges"] == 0
             and c["dt_closure_edge_m"] < raw["dt_closure_edge_m"] / 10):
         raise AssertionError(f"NCLT pose graph did not close the circuit: {info}, {c}")
+
+
+def nclt_graph(rel, dev, info):
+    """The NCLT circuit graph: nodes on the standard chain of ``rel``, every
+    edge carrying the information matrix ``info``."""
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.utils import se3
+
+    return pose_graph.build_circuit_graph(se3.relative_to_absolute_standard(rel), rel,
+                                          np.tile(info, (len(rel), 1, 1)), device=dev)
+
+
+def pose_graph_pair(label: str, graph, rel) -> None:
+    """The n=901 pose graph through K9 against the same on the plain Thomas
+    loops, both on the card, at test_global_optimization_at_n901_matches's
+    bounds (its docstring: a step solves a system of condition ~n^2 in
+    float32): the same pruning and re-seeding, mu within 1e-6, the same edge
+    mask, final costs within 1% and the consistency summaries within 1e-4
+    relative plus 1e-4."""
+    import torch
+
+    from pcr_tpu_torch.models import evaluate
+    from pcr_tpu_torch.models.global_refine import pose_graph
+
+    def one(plain: bool):
+        (out, info), wall = synced(lambda: pose_graph.global_optimization(
+            graph, max_correspondence_distance=0.2, return_info=True))
+        c = evaluate.circuit_edge_consistency(out.nodes.double().cpu().numpy(), rel,
+                                              convention="standard")
+        print(f"NCLT pose graph ({label}) {'on the plain Thomas loops' if plain else 'through K9'}: "
+              f"{wall:.3f} s, iterations {info['pass1_iterations']} + "
+              f"{info['pass2_iterations']}; {info}")
+        return out, info, c
+
+    out, info, c = one(plain=False)
+    with plain_loops():
+        out_p, info_p, c_p = one(plain=True)
+    for key in ("pruned_edges", "reseeded_from_chain"):
+        if info[key] != info_p[key]:
+            raise AssertionError(f"NCLT pose graph: {key} {info[key]} against {info_p[key]}")
+    held = [("mu", 1e-6), ("pass1_final_cost", 1e-2), ("pass2_final_cost", 1e-2)]
+    bad = [key for key, rtol in held if not abs(info[key] - info_p[key]) <= rtol * abs(info_p[key])]
+    bad += [key for key, value in c_p.items() if isinstance(value, float)
+            and not abs(c[key] - value) <= 1e-4 * abs(value) + 1e-4]
+    if not info["pass1_line_process_min"] > 0.25:
+        bad.append("pass1_line_process_min")
+    if not torch.equal(out.edge_mask, out_p.edge_mask):
+        bad.append("edge_mask")
+    print(f"NCLT pose graph ({label}), K9 against the plain loops: final costs "
+          f"{info['pass1_final_cost']:.6g} / {info_p['pass1_final_cost']:.6g} and "
+          f"{info['pass2_final_cost']:.6g} / {info_p['pass2_final_cost']:.6g}, pruned "
+          f"{info['pruned_edges']} / {info_p['pruned_edges']}; consistency "
+          + ", ".join(f"{k} {c[k]:.6g} / {v:.6g}" for k, v in c_p.items()
+                      if isinstance(v, float)))
+    if bad:
+        raise AssertionError(f"NCLT pose graph ({label}) through K9 differs from the plain "
+                             f"loops: {bad}")
 
 
 def phase_full(clouds, rel1, rel2, staged_s: float):
@@ -2086,7 +2238,7 @@ def phase_graph_builder(dev) -> None:
     the batched graph, the two graphs edge by edge."""
     import torch
 
-    from pcr_tpu_torch.models import evaluate, graph_builder
+    from pcr_tpu_torch.models import evaluate, fgr, graph_builder
     from pcr_tpu_torch.models.global_refine import pose_graph
     from pcr_tpu_torch.utils import cloud
 
@@ -2113,7 +2265,9 @@ def phase_graph_builder(dev) -> None:
         log, seeds = [], []
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with ladder_seeds(seeds):
+        with ladder_seeds(seeds), watching(fgr, "fgr_from_correspondences",
+                                           keep=("gnc", f"Facade graph builder, batch "
+                                                        f"{FACADE_BATCH}")):
             graph, wall = synced(lambda: build(log.append))
         launches = read_launches()
         pairs = list(zip(graph.edge_src.tolist(), graph.edge_dst.tolist()))
@@ -2133,7 +2287,7 @@ def phase_graph_builder(dev) -> None:
                 raise AssertionError(f"{name} odometry edge {s}->{t} off ground truth: "
                                      f"{e_t} m, {e_r} deg")
         print(f"  {log[-1]}")
-        check_launched(launches, STAGE2_KERNELS, f"the {name} builder")
+        check_launched(launches, STAGE2_KERNELS + ("gnc",), f"the {name} builder")
 
     truth = np.stack([np.linalg.inv(absolute[0]) @ A for A in absolute])
     (out, info), wall_opt = synced(lambda: pose_graph.global_optimization(
@@ -2171,6 +2325,176 @@ def phase_graph_builder(dev) -> None:
             and dT <= MAX_BUILDERS_EDGE and info_ok
             and (dN is None or dN <= MAX_BUILDERS_NODE)):
         raise AssertionError(f"the serial and batched graphs differ: {dT}, {info_ok}, {dN}")
+
+
+MAX_GNC_T = 1e-4          # K8's normalised poses against its plain version's
+MAX_GNC_MM = 5.0          # ... and the poses they denormalise to, mm
+MAX_GNC_DEG = 0.02        # ... and deg
+MAX_THOMAS_RATIO = 10.0   # K9's refined relative residual against the plain solve's
+MIN_THOMAS_RESIDUAL = 1e-6
+GNC_ROW_OPS = 70          # FP32 operations of a kept row in a GNC step (csrc/loops.cu)
+GNC_STEP_OPS = 400        # about, of a pair's 6x6 solve, exp and compose a step
+PLAIN_LOOP_REPS = 2
+
+
+def plain_times(fn, reps: int) -> tuple[float, float]:
+    """(CUDA-event ms, host-clock ms), medians of ``fn()`` over ``reps``
+    runs after one: the plain loops are bound by the host's launches, so
+    the two read nearly alike."""
+    import torch
+
+    fn()
+    events, host = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(a.elapsed_time(b))
+    return statistics.median(events), statistics.median(host)
+
+
+def check_k8(label: str, args):
+    """K8 on a path's fgr_from_correspondences arguments against its plain
+    version: the normalised poses within MAX_GNC_T (300 float32 steps from
+    the same start, sums in other orders, to the same fixed point; the
+    plain version's own bound against pcr_tpu), the poses they denormalise
+    to within MAX_GNC_MM / MAX_GNC_DEG (that bound at scenes of up to
+    50 m), two kernel runs bit for bit.  Returns (err, ms, plain ms, bound
+    ms, bound by, None)."""
+    import torch
+
+    from pcr_tpu_torch.models import fgr
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
+
+    src, tgt, ci, cj, cm, opts = args
+    inp = fgr.gnc_inputs(src, tgt, ci, cj, cm, opts)
+    kargs = (inp.p, inp.q, inp.w, inp.mu0, inp.delta, inp.enough, opts.iteration_number,
+             opts.division_factor, opts.decrease_mu)
+    T_k, T_k2 = lk.gnc(*kargs), lk.gnc(*kargs)
+    T_p = lk.gnc_reference(*kargs)
+    torch.cuda.synchronize()
+    if not torch.equal(T_k, T_k2):
+        raise AssertionError(f"K8 {label}: two runs differ by {float((T_k - T_k2).abs().max())}")
+    err = float((T_k - T_p).abs().max())
+    P_k, P_p = (fgr.gnc_pose(T, inp).reshape(-1, 4, 4).double().cpu().numpy()
+                for T in (T_k, T_p))
+    diffs = [pose_error(a, b) for a, b in zip(P_k, P_p)]
+    d_mm, d_deg = max(d[0] for d in diffs) * 1e3, max(d[1] for d in diffs)
+    n_pairs, n = P_k.shape[0], inp.w.shape[-1]
+    kept = int((inp.w != 0).sum())
+    ms = cuda_ms(lambda: lk.gnc(*kargs), 10)
+    plain_ms, plain_wall = plain_times(lambda: lk.gnc_reference(*kargs), PLAIN_LOOP_REPS)
+    steps = opts.iteration_number
+    # every weight is read, p and q only on kept rows; delta, enough and T
+    n_bytes = 4 * inp.w.numel() + 24 * kept + 4 * n_pairs + n_pairs * (1 + 64)
+    lim = bound(n_bytes, steps * (GNC_ROW_OPS * kept + GNC_STEP_OPS * n_pairs))
+    print(f"K8 gnc {label}: {n_pairs} pair(s) x {n} rows ({kept} kept), "
+          f"{'absolute' if opts.use_absolute_scale else 'relative'} scale, {steps} steps; "
+          f"normalised poses within {err:.3e} of the plain version (limit {MAX_GNC_T:g}), "
+          f"poses {d_mm:.4f} mm / {d_deg:.6f} deg apart (limits {MAX_GNC_MM:g} mm, "
+          f"{MAX_GNC_DEG:g} deg), two runs bit for bit; kernel {ms:.4f} ms "
+          f"({ms * 1e3 / max(steps, 1):.2f} us a step), plain {plain_ms:.1f} ms (host "
+          f"{plain_wall:.1f} ms), bound {lim[0]:.6f} ms ({lim[1]})")
+    if not (err <= MAX_GNC_T and d_mm <= MAX_GNC_MM and d_deg <= MAX_GNC_DEG):
+        raise AssertionError(f"K8 {label}: {err}, {d_mm} mm, {d_deg} deg from the plain version")
+    return err, ms, plain_ms, *lim, None
+
+
+def thomas_ops(m: int) -> int:
+    """FP32 operations of a block-Thomas solve as csrc/loops.cu does it:
+    S and r from the previous step (j > 0), the 6x13 elimination, the seven
+    back substitutions, the backward sweep's 6x6 products."""
+    elim = sum(1 + (5 - k) * (1 + 2 * (12 - k)) for k in range(6))
+    back = 7 * sum(2 * (5 - k) + 1 for k in range(6))
+    return m * (elim + back) + (m - 1) * (36 * 12 + 6 * 12 + 6 * 12)
+
+
+def dense_tridiagonal(D, U):
+    """The (6m, 6m) matrix of the block-tridiagonal system (D, U)."""
+    import torch
+
+    m = D.shape[0]
+    A = D.new_zeros((m, 6, m, 6))
+    j = torch.arange(m, device=D.device)
+    A[j, :, j, :] = D
+    A[j[:-1], :, j[1:], :] = U
+    A[j[1:], :, j[:-1], :] = U.transpose(1, 2)
+    return A.reshape(6 * m, 6 * m)
+
+
+def check_k9(label: str, args, library: bool):
+    """K9 on a path's block_thomas arguments against its plain version, by
+    the relative residual |A x - b| / |b| (float64) of the refined solve
+    (the LM's two solves, models/global_refine/pose_graph._solve_tridiag):
+    within MAX_THOMAS_RATIO of the plain one's, or under MIN_THOMAS_RESIDUAL
+    (16 float32 roundings).  x itself is not held: the NCLT system's
+    condition is ~n^2 (pose_graph.py).  Two kernel runs bit for bit.
+    Returns (residual, ms, plain ms, bound ms, bound by, library ms)."""
+    import torch
+
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.ops.kernels import loop_kernels as lk
+
+    D, U, rhs = args
+    m = D.shape[0]
+    x_k, x_k2 = lk.block_thomas(D, U, rhs), lk.block_thomas(D, U, rhs)
+    x_p = lk.block_thomas_reference(D, U, rhs)
+    torch.cuda.synchronize()
+    if not torch.equal(x_k, x_k2):
+        raise AssertionError(f"K9 {label}: two runs differ by {float((x_k - x_k2).abs().max())}")
+
+    def residual(solve):
+        x = solve(D, U, rhs)
+        x = x + solve(D, U, rhs - pose_graph._band_matvec(D, U, x))
+        b = rhs.double()
+        return float(torch.linalg.norm(pose_graph._band_matvec(D.double(), U.double(),
+                                                               x.double()) - b)
+                     / torch.linalg.norm(b))
+
+    r_k, r_p = residual(lk.block_thomas), residual(lk.block_thomas_reference)
+    dx = float((x_k - x_p).abs().max() / x_p.abs().max())
+    ms = cuda_ms(lambda: lk.block_thomas(D, U, rhs), 20)
+    plain_ms, plain_wall = plain_times(lambda: lk.block_thomas_reference(D, U, rhs), 3)
+    lib_ms = None
+    if library:
+        A, b = dense_tridiagonal(D, U), rhs.reshape(-1)
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b), 5)
+    lim = bound(4 * (D.numel() + U.numel() + 2 * rhs.numel()), thomas_ops(m))
+    limit = max(MAX_THOMAS_RATIO * r_p, MIN_THOMAS_RESIDUAL)
+    print(f"K9 block_thomas {label}: refined relative residual {r_k:.3e}, plain {r_p:.3e} "
+          f"(limit {limit:.3e}); x within {dx:.3e} of the plain x (relative, not held); two "
+          f"runs bit for bit; kernel {ms:.4f} ms ({ms * 1e3 / m:.3f} us a step), plain "
+          f"{plain_ms:.1f} ms (host {plain_wall:.1f} ms)"
+          + (f", dense torch.linalg.solve of the (6m)^2 system {lib_ms:.3f} ms"
+             if lib_ms is not None else "") + f", bound {lim[0]:.6f} ms ({lim[1]})")
+    if not r_k <= limit:
+        raise AssertionError(f"K9 {label}: residual {r_k} against the plain solve's {r_p}")
+    return r_k, ms, plain_ms, *lim, lib_ms
+
+
+def phase_loop_kernels() -> list[dict]:
+    """Phase 23 (module docstring): K8 and K9 against their plain versions
+    on the arguments the earlier phases gave them.  The JSON record keeps
+    K8's times at the main path's shape (the NCLT stage 1 at batch 1: the
+    CLI's ``full`` streams stage 1, one launch a pair) and K9's at NCLT's
+    m = 900."""
+    gnc = {case: check_k8(case, args) for (name, case), args in LOOP_INPUTS.items()
+           if name == "gnc"}
+    thomas = {case: check_k9(case, args, library=case.startswith("NCLT"))
+              for (name, case), args in LOOP_INPUTS.items() if name == "block_thomas"}
+    if len(gnc) != 3 or len(thomas) != 2:
+        raise AssertionError(f"phase 23 lacks inputs: {sorted(LOOP_INPUTS)}")
+    return [record("gnc", "pcr_tpu_torch/csrc/loops.cu", "pcr_tpu/models/fgr.py:166",
+                   list(gnc.values()), gnc["NCLT stage 1, batch 1"]),
+            record("block_thomas", "pcr_tpu_torch/csrc/loops.cu",
+                   "pcr_tpu/models/global_refine/pose_graph.py:173", list(thomas.values()),
+                   next(r for case, r in thomas.items() if case.startswith("NCLT")))]
 
 
 def main() -> int:
@@ -2221,6 +2545,7 @@ def main() -> int:
     one = phase_mesh_one_rank(clouds, scans, init, batched, pair)
     phase_mesh_two_ranks(scans, gt, init, batched, one)
     phase_graph_builder(dev)
+    records += phase_loop_kernels()
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

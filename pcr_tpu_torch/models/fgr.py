@@ -35,10 +35,11 @@ import torch
 from ..ops import fpfh as fpfh_ops
 from ..ops import knn as knn_ops
 from ..ops import normals as normals_ops
+from ..ops.kernels import loop_kernels
 from ..utils import se3
 from ..utils.cloud import Cloud, stack_clouds
 from . import evaluate as eval_mod
-from .gicp import RegistrationResult, solve6_cholesky
+from .gicp import RegistrationResult
 
 
 class FgrOptions(NamedTuple):
@@ -114,18 +115,31 @@ def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(pts, idx.long()[..., None], dim=-2)
 
 
-def fgr_from_correspondences(source: Cloud, target: Cloud, corr_i, corr_j, corr_mask,
-                             opts: FgrOptions) -> torch.Tensor:
-    """GNC over fixed correspondences; returns the (4, 4) f32 pose.  A Python
-    loop of ``iteration_number`` steps that never reads the device.
+class GncInputs(NamedTuple):
+    """The GNC's normalised inputs (``ops/kernels/loop_kernels.gnc``) and the
+    normalisation that ``gnc_pose`` undoes; leading batch dimensions as the
+    correspondences'."""
 
-    Stacked pairs (clouds and correspondences with a leading dimension B)
-    run the GNC once over the batch and return (B, 4, 4): every step is the
-    same launches for B pairs, and each pair's arithmetic is its own."""
+    p: torch.Tensor        # (..., N, 3) source points of the correspondences, normalised
+    q: torch.Tensor        # (..., N, 3) target points, normalised
+    w: torch.Tensor        # (..., N) f32 correspondence mask
+    mu0: float             # mu's start
+    delta: torch.Tensor    # (...) normalised stop scale
+    enough: torch.Tensor   # (...) bool: at least 3 correspondences
+    scale: torch.Tensor    # (...)
+    c_src: torch.Tensor    # (..., 3)
+    c_tgt: torch.Tensor    # (..., 3)
+
+
+def gnc_inputs(source: Cloud, target: Cloud, corr_i, corr_j, corr_mask,
+               opts: FgrOptions) -> GncInputs:
+    """Gather and normalise the correspondences: centred on each cloud's
+    centroid and divided by the larger radius (relative scale), or as they
+    are (``use_absolute_scale``)."""
     dev = source.device
     p_all = _take_rows(source.points, corr_i)
     q_all = _take_rows(target.points, corr_j)
-    w_corr = corr_mask.to(torch.float32)
+    w_corr = corr_mask.to(torch.float32).contiguous()
     batch = w_corr.shape[:-1]
     if opts.use_absolute_scale:
         scale = torch.ones(batch, dtype=torch.float32, device=dev)
@@ -134,37 +148,41 @@ def fgr_from_correspondences(source: Cloud, target: Cloud, corr_i, corr_j, corr_
         c_src, r_src = _center_radius(source.points, source.mask)
         c_tgt, r_tgt = _center_radius(target.points, target.mask)
         scale = torch.clamp(torch.maximum(r_src, r_tgt), min=1e-6)
-    p = (p_all - c_src[..., None, :]) / scale[..., None, None]
-    q = (q_all - c_tgt[..., None, :]) / scale[..., None, None]
-    delta = opts.maximum_correspondence_distance / scale    # normalized stop scale
-    enough = (torch.sum(w_corr, dim=-1) >= 3)[..., None]
-
     # mu starts at the (normalized) global scale squared = 1 in relative-scale
     # mode; in absolute-scale mode at a proxy of the squared extent
-    mu = torch.full(batch, 1.0 if not opts.use_absolute_scale
-                    else opts.maximum_correspondence_distance ** 2 * 1e4,
-                    dtype=torch.float32, device=dev)
-    T = torch.eye(4, dtype=torch.float32, device=dev).expand(batch + (4, 4))
-    minus_eye = (-torch.eye(3, dtype=torch.float32, device=dev)).expand(p.shape[:-1] + (3, 3))
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    for it in range(opts.iteration_number):
-        if opts.decrease_mu and it % 4 == 0:
-            mu = torch.where(mu > delta * delta, mu / opts.division_factor, mu)
-        pt = se3.transform_points(T, p)
-        r = q - pt
-        l = torch.square(mu[..., None] / (mu[..., None] + torch.sum(r * r, dim=-1))) * w_corr
-        G = torch.cat([se3.skew(pt), minus_eye], dim=-1)   # (..., N, 3, 6)
-        lG = G * l[..., None, None]
-        H = torch.einsum("...nij,...nik->...jk", lG, G)
-        g = torch.einsum("...nij,...ni->...j", lG, r)
-        trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
-        H = H + (1e-6 * (trace / 6.0 + 1.0))[..., None, None] * eye6
-        xi = torch.where(enough, -solve6_cholesky(H, g), 0.0)
-        T = se3.compose(se3.se3_exp(xi), T)
-    # denormalize: q = s*(R p_hat + t_hat) + c_tgt with p_hat = (p - c_src)/s
-    R = se3.rot(T)
-    return se3.make_pose(R, scale[..., None] * se3.trans(T) + c_tgt
-                         - (R @ c_src[..., None])[..., 0])
+    mu0 = (1.0 if not opts.use_absolute_scale
+           else opts.maximum_correspondence_distance ** 2 * 1e4)
+    return GncInputs(
+        p=(p_all - c_src[..., None, :]) / scale[..., None, None],
+        q=(q_all - c_tgt[..., None, :]) / scale[..., None, None],
+        w=w_corr, mu0=mu0,
+        delta=opts.maximum_correspondence_distance / scale,    # normalized stop scale
+        enough=torch.sum(w_corr, dim=-1) >= 3,
+        scale=scale, c_src=c_src, c_tgt=c_tgt)
+
+
+def gnc_pose(T_hat: torch.Tensor, inp: GncInputs) -> torch.Tensor:
+    """Denormalize the GNC's poses: q = s*(R p_hat + t_hat) + c_tgt with
+    p_hat = (p - c_src)/s."""
+    R = se3.rot(T_hat)
+    return se3.make_pose(R, inp.scale[..., None] * se3.trans(T_hat) + inp.c_tgt
+                         - (R @ inp.c_src[..., None])[..., 0])
+
+
+def fgr_from_correspondences(source: Cloud, target: Cloud, corr_i, corr_j, corr_mask,
+                             opts: FgrOptions) -> torch.Tensor:
+    """GNC over fixed correspondences; returns the (4, 4) f32 pose.  The
+    ``iteration_number`` steps are one launch of kernel K8 on the card
+    (``loop_kernels.gnc``) and its plain loop on the CPU; around them the
+    normalisation and the denormalisation stay here.
+
+    Stacked pairs (clouds and correspondences with a leading dimension B)
+    run the GNC once over the batch and return (B, 4, 4); each pair's
+    arithmetic is its own."""
+    inp = gnc_inputs(source, target, corr_i, corr_j, corr_mask, opts)
+    T = loop_kernels.gnc(inp.p, inp.q, inp.w, inp.mu0, inp.delta, inp.enough,
+                         opts.iteration_number, opts.division_factor, opts.decrease_mu)
+    return gnc_pose(T, inp)
 
 
 def _correspondences(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
@@ -220,8 +238,8 @@ def batched_registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt,
     ``seeds``: B tuple-test seeds, one a pair; ``max_tuples``: optional B
     tuple caps, one a pair; ``u``: optional (B, n_trials, 3) uniforms for the
     tuple tests.  Matching, the tuple test and the evaluation (kernel K1) run
-    pair by pair; the 300-step GNC runs once over the batch, so its launches
-    are paid once for B pairs (the GNC is bound by host launches)."""
+    pair by pair; the 300-step GNC runs once over the batch (one launch of
+    K8 on the card, a block a pair)."""
     corr = [_correspondences(source[b], target[b], feat_src[b], feat_tgt[b], opts,
                              int(seeds[b]), n_trials,
                              None if max_tuples is None else int(max_tuples[b]),

@@ -35,10 +35,10 @@ Design on the card, float32 throughout:
     (every odometry edge of the standard-chain start) leak no NaN from the
     branch not taken.
   * Circuit graphs (edges (i, i+1) and the loop edge (n-1, 0)) are solved
-    by 6x6 block-Thomas elimination in O(n): a forward and a backward loop
-    of small launches (the counterpart of two ``lax.scan``s), run twice an
-    LM iteration for one step of iterative refinement.  Other graphs take
-    the dense (6n)^2 solve.
+    by 6x6 block-Thomas elimination in O(n): the forward and the backward
+    sweep (the counterpart of two ``lax.scan``s) are one launch of kernel K9
+    on the card, run twice an LM iteration for one step of iterative
+    refinement.  Other graphs take the dense (6n)^2 solve.
   * The LM loop is a host loop with one device read an iteration (the new
     joint cost); accept / reject, the damping and the stopping tests run on
     the host in float32, as the JAX package's ``lax.while_loop`` does on
@@ -58,6 +58,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from ...ops.kernels import loop_kernels
 from ...utils import collectives
 from ...utils import se3
 from ...utils.cloud import _placement
@@ -163,32 +164,14 @@ def _band_matvec(D, U, x):
 
 
 def _block_thomas_solve(D, U, rhs):
-    """Solve the SPD block-tridiagonal system with 6x6 blocks.
-
-    D: (m, 6, 6) diagonal blocks; U: (m-1, 6, 6) super-diagonal blocks
-    (block j to j+1; the sub-diagonal is U^T); rhs: (m, 6).  Forward
-    elimination and back substitution, one 6x7 solve a step: O(m), against
-    the O(m^3) dense solve.  Each step is a few small launches, so on the
-    card a solve at m = 900 is bound by launching them."""
-    m = D.shape[0]
-    C = D.new_zeros((6, 6))
-    d = D.new_zeros(6)
-    Cs, ds = [], []
-    for j in range(m):
-        if j > 0:
-            L = U[j - 1].T                            # sub-diagonal block
-            S, r = D[j] - L @ C, rhs[j] - L @ d
-        else:
-            S, r = D[0], rhs[0]
-        B = torch.cat([U[j], r[:, None]], dim=1) if j < m - 1 else r[:, None]
-        sol = torch.linalg.solve_ex(S, B)[0]          # no error check: no sync
-        C, d = sol[:, :-1], sol[:, -1]
-        Cs.append(C)
-        ds.append(d)
-    xs = [ds[m - 1]]
-    for j in range(m - 2, -1, -1):
-        xs.append(ds[j] - Cs[j] @ xs[-1])
-    return torch.stack(xs[::-1])
+    """Solve the SPD block-tridiagonal system with 6x6 blocks: D (m, 6, 6)
+    diagonal blocks, U (m-1, 6, 6) super-diagonal blocks (block j to j+1;
+    the sub-diagonal is U^T), rhs (m, 6).  Block-Thomas elimination, O(m)
+    against the O(m^3) dense solve: one launch of kernel K9 on the card
+    (``loop_kernels.block_thomas``), its plain loops on the CPU.  Kept as a
+    name of its own because it is pcr_tpu's ``_block_thomas_solve``'s
+    counterpart (PARITY.md), which the tests hold it to."""
+    return loop_kernels.block_thomas(D, U, rhs)
 
 
 class LMResult(NamedTuple):

@@ -37,6 +37,8 @@ SIGNATURES = {
     "pcr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "pcr_spfh": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
     "pcr_fpfh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "pcr_gnc": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
+    "pcr_block_thomas": [_P, _P, _P, _I, _P, _P, _P, _P],
     # bytes of shared memory a block of K4, K5, K6 asks for at a band
     "pcr_moments_smem": [_I],
     "pcr_spfh_smem": [_I],

@@ -1,4 +1,4 @@
-"""Kernels K1-K7 on the card against their plain PyTorch versions on the
+"""Kernels K1-K9 on the card against their plain PyTorch versions on the
 same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import chip_smoke
+from pcr_tpu_torch.models import fgr
+from pcr_tpu_torch.models.global_refine import pose_graph
 from pcr_tpu_torch.ops import knn, preprocess
-from pcr_tpu_torch.ops.kernels import feature_kernels, nn_kernels
+from pcr_tpu_torch.ops.kernels import feature_kernels, loop_kernels, nn_kernels
 from pcr_tpu_torch.utils import cloud
 from pcr_tpu_torch.utils.cloud import pad_rows
 
@@ -301,3 +303,130 @@ def test_nn1_kernel_refuses_float64_and_serves_knn(cuda_rng):
     torch.cuda.synchronize()
     assert nn_kernels.LAUNCHES["nn1"] == before + 1
     assert bool(mask[i].all()) and bool((d[mask] == 0).all())
+
+
+def _gnc_case(rng, n: int, batch: int, kept: float, absolute: bool):
+    """GNC inputs on the card: a cloud in normalised units (relative scale)
+    or metres (absolute), its target under a known motion with small noise,
+    a quarter of the kept correspondences outliers; the last pair of a batch
+    of 3 or more keeps only 2 correspondences.  Returns (p, q, w, mu0,
+    delta, enough)."""
+    dev = torch.device("cuda")
+    extent, noise, max_corr = (20.0, 0.01, 0.2) if absolute else (1.0, 5e-4, 0.01)
+    p = rng.uniform(-extent, extent, size=(batch, n, 3)).astype(np.float32)
+    a = rng.uniform(0.05, 0.3, batch)
+    R = np.stack([[[np.cos(x), -np.sin(x), 0], [np.sin(x), np.cos(x), 0], [0, 0, 1]] for x in a])
+    t = rng.uniform(-0.1 * extent, 0.1 * extent, (batch, 1, 3))
+    q = (np.einsum("bij,bnj->bni", R, p) + t + rng.normal(0, noise, p.shape)).astype(np.float32)
+    out = rng.random((batch, n)) < 0.25
+    q[out] = rng.uniform(-extent, extent, (int(out.sum()), 3))
+    w = (rng.random((batch, n)) < kept).astype(np.float32)
+    if batch >= 3:
+        w[-1] = 0.0
+        w[-1, :2] = 1.0
+    enough = w.sum(-1) >= 3
+    mu0 = max_corr ** 2 * 1e4 if absolute else 1.0
+    delta = np.full(batch, max_corr, np.float32)
+    to = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    return to(p), to(q), to(w), mu0, to(delta), to(enough)
+
+
+GNC_CASES = {   # n rows, pairs, kept share, absolute scale, decrease mu
+    "nclt_one_pair": (24576, 1, 0.15, False, True),
+    "nclt_chunk": (24576, 2, 0.15, False, True),
+    "every_row_kept": (24576, 2, 1.0, False, True),     # beyond shared memory: rows from L2
+    "facade_chunk": (90112, 2, 0.1, True, True),
+    "fixed_mu_with_a_two_row_pair": (1000, 3, 0.5, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GNC_CASES))
+def test_gnc_kernel_matches_plain(cuda_rng, case):
+    """K8 against its plain version: both converge to the same fixed point
+    from the same start, sums in other orders, so the normalised poses
+    agree within 1e-4 (the bound of the plain version against pcr_tpu); the
+    kernel run twice is bit for bit the same; a pair with 2 correspondences
+    stays the identity exactly; the wrapper counts its launch."""
+    n, batch, kept, absolute, decrease_mu = GNC_CASES[case]
+    args = (*_gnc_case(cuda_rng, n, batch, kept, absolute), 300, 1.4, decrease_mu)
+    before = loop_kernels.LAUNCHES["gnc"]
+    T_k = loop_kernels.gnc(*args)
+    T_k2 = loop_kernels.gnc(*args)
+    torch.cuda.synchronize()
+    assert loop_kernels.LAUNCHES["gnc"] == before + 2
+    assert torch.equal(T_k, T_k2)
+    T_p = loop_kernels.gnc_reference(*args)
+    assert torch.isfinite(T_k).all()
+    torch.testing.assert_close(T_k, T_p, rtol=0, atol=1e-4)
+    if batch >= 3:
+        assert torch.equal(T_k[-1], torch.eye(4, device=T_k.device))
+    one = loop_kernels.gnc(*(x[0] if torch.is_tensor(x) else x for x in args))
+    torch.testing.assert_close(one, T_k[0], rtol=0, atol=1e-6)
+
+
+def _tridiagonal(rng, m: int):
+    A = rng.normal(size=(m, 6, 6)).astype(np.float32)
+    D = (np.einsum("mij,mkj->mik", A, A) + 12 * np.eye(6)).astype(np.float32)
+    U = (0.3 * rng.normal(size=(m - 1, 6, 6))).astype(np.float32)
+    rhs = rng.normal(size=(m, 6)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device="cuda") for x in (D, U, rhs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 7, 900])
+def test_block_thomas_kernel_matches_plain(cuda_rng, m):
+    """K9 against its plain version on a well-conditioned system (diagonal
+    blocks A A^T + 12 I): both eliminate with partial pivoting in float32,
+    so x agrees within 1e-5 of its largest entry; the kernel run twice is
+    bit for bit the same; the wrapper counts its launch."""
+    D, U, rhs = _tridiagonal(cuda_rng, m)
+    before = loop_kernels.LAUNCHES["block_thomas"]
+    x_k = loop_kernels.block_thomas(D, U, rhs)
+    x_k2 = loop_kernels.block_thomas(D, U, rhs)
+    torch.cuda.synchronize()
+    assert loop_kernels.LAUNCHES["block_thomas"] == before + 2
+    assert torch.equal(x_k, x_k2)
+    x_p = loop_kernels.block_thomas_reference(D, U, rhs)
+    torch.testing.assert_close(x_k, x_p, rtol=0, atol=1e-5 * float(x_p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_loop_kernels_never_fall_back(cuda_rng, monkeypatch):
+    """With both plain versions made to raise, FGR's GNC and the pose
+    graph's block-Thomas solve still run on CUDA tensors, through K8 and
+    K9 (K9 twice an LM iteration); float64 inputs raise."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain loop ran on CUDA tensors")
+
+    monkeypatch.setattr(loop_kernels, "gnc_reference", refuse)
+    monkeypatch.setattr(loop_kernels, "block_thomas_reference", refuse)
+    dev = torch.device("cuda")
+    pts = cuda_rng.uniform(-5, 5, size=(2000, 3)).astype(np.float32)
+    src = cloud.from_numpy(pts, 2048, device=dev)
+    tgt = cloud.from_numpy(pts + np.float32([0.1, 0.0, 0.0]), 2048, device=dev)
+    idx = torch.arange(2048, device=dev)
+    before = dict(loop_kernels.LAUNCHES)
+    T = fgr.fgr_from_correspondences(src, tgt, idx, idx, src.mask, fgr.FgrOptions())
+    torch.cuda.synchronize()
+    assert loop_kernels.LAUNCHES["gnc"] == before["gnc"] + 1
+    assert abs(float(T[0, 3]) - 0.1) < 1e-3
+    n = 8
+    rel = np.tile(np.eye(4), (n, 1, 1))
+    rel[:, 0, 3] = 0.5
+    rel[-1, 0, 3] = -3.4                                  # the loop closes 10 cm short
+    graph = pose_graph.build_circuit_graph(
+        np.stack([np.eye(4) + np.pad([[0, 0, 0, 0.5 * k]], ((0, 3), (0, 0)))
+                  for k in range(n)]), rel, np.tile(np.eye(6, dtype=np.float32), (n, 1, 1)),
+        device=dev)
+    before = loop_kernels.LAUNCHES["block_thomas"]
+    res = pose_graph.optimize_pose_graph_once(graph, mu=1.0, max_iterations=5,
+                                              solver="tridiag")
+    assert loop_kernels.LAUNCHES["block_thomas"] == before + 2 * res.iterations_used
+    assert torch.isfinite(res.nodes).all()
+    D, U, rhs = _tridiagonal(cuda_rng, 4)
+    with pytest.raises(TypeError):
+        loop_kernels.block_thomas(D.double(), U, rhs)
+    with pytest.raises(TypeError):
+        loop_kernels.gnc(*(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+                           for x in (*_gnc_case(cuda_rng, 64, 1, 0.5, False), 300, 1.4, True)))
