@@ -32,8 +32,8 @@ Phases (any failure ends the run with a non-zero exit code):
   7. stage 1 — pipeline.run_stage1_fgr (banded features, mutual matching,
                tuple test, 300 GNC iterations) over the circuit, cold and
                warm; every pair within 0.5 m / 5 deg of ground truth, and K1,
-               K4, K5, K6 and K8 must each have been launched by the warm run,
-               K8 once a pair;
+               K4, K5, K6, K8 and K11 must each have been launched by the warm
+               run, K8 and K11 (the mutual matching) once a pair;
   8. stage 1 -> 2 — stage 2 seeded with the port's own stage-1 poses, the
                retry ladder on; every pair within 3 cm / 0.2 deg;
   9. stage 3 — pipeline.run_stage3_global, all four methods (LUM, SLERP,
@@ -41,27 +41,31 @@ Phases (any failure ends the run with a non-zero exit code):
                card over K1's band-NN information matrices) on the stage-2
                poses of phase 8: each trajectory within 5 cm of ground truth
                (aligned ATE), the card's pose graph within 1e-4 of the same
-               graph solved on the CPU, K1 and K9 launched; cold and warm
-               walls and each method's seconds;
+               graph solved on the CPU, K1 launched, K12's two launches once
+               an LM iteration and K9's two; cold and warm walls and each
+               method's seconds;
  10. run_full — pipeline.run_full on the default PipelineConfig (stages 1 -> 3
                in one window, the main path): its stage-1 and stage-2 poses
-               equal phases 7 and 8's, K1-K6, K8 and K9 each launched; its
-               wall beside the staged runners' sum;
+               equal phases 7 and 8's, K1-K6, K8, K9, K11 (at least once a
+               pair) and K12 (once an LM iteration) each launched; its wall
+               beside the staged runners' sum;
  11. batched — run_stage1_fgr and run_stage2_mgicp at the default
                batch_size=2 (stage 1 in chunks of pairs, one GNC over a
                chunk; stage 2 streams at every batch size), cold and warm:
                stage 1 within 0.5 m / 5 deg, stage 2 within 3 cm / 0.2 deg,
-               K1, K4-K6, K8 (once a chunk) and K1-K3 launched; both warm
-               walls beside the streamed ones;
+               K1, K4-K6, K8 (once a chunk), K11 (once a pair) and K1-K3
+               launched; both warm walls beside the streamed ones;
  12. NCLT stage 3 — the 901-pose circuit of outputs/NCLT_poses.npz: the
                closed forms held to the file's trajectories (1e-6), the pose
                graph on the card with identity information matrices, timed
-               (iterations, ms an iteration, the block-Thomas solves' share),
-               K9 launched twice an LM iteration; the circuit with the
-               information of test_global_optimization_at_n901_matches
-               through K9 and on the plain Thomas loops, both walls, held at
-               that test's bounds (pruning, mu, final costs, edge mask,
-               circuit consistency);
+               (iterations, ms an iteration, the block-Thomas solves' share,
+               the Hessian blocks and bands' share, K12 beside its plain
+               version), K9 launched twice an LM iteration and K12's two
+               launches once; the circuit with the information of
+               test_global_optimization_at_n901_matches through K9 and K12
+               and on the plain loops, both walls, held at that test's
+               bounds (pruning, mu, final costs, edge mask, circuit
+               consistency);
  13. stage-1 split — features ms/scan; matching, tuple test, GNC and
                evaluation ms/pair; the GNC of two pairs one after another
                beside one batched GNC over both;
@@ -90,8 +94,10 @@ Phases (any failure ends the run with a non-zero exit code):
  18. entry points — the 8 scans written as binary PCD in the NCLT layout
                under a temporary reference root; pcr_tpu_torch.__main__.main
                runs ``full --dataset NCLT --n 8`` (loading, run_full through
-               K1-K6; the main path as a user calls it): its stage-1 and
-               stage-2 pose files within 1e-6 of phase 10's, K1-K6 launched,
+               K1-K6, K8, K9, K11, K12; the main path as a user calls it): its
+               stage-1 and stage-2 pose files within 1e-6 of phase 10's, those
+               kernels launched (K11 at least once a pair, K12 once an LM
+               iteration),
                its wall beside phase 10's; run_full over
                load_dataset_lazy("NCLT", range(8)) equal to the same poses and
                its uploaded clouds equal to the in-memory ones; ``python -m
@@ -145,7 +151,9 @@ Phases (any failure ends the run with a non-zero exit code):
                launched); every edge's gate fitness and error against
                ground truth (odometry edges within 3 cm / 0.2 deg);
                global_optimization of the batched graph (every node within
-               8 cm, aligned ATE); the serial graph against the batched one
+               8 cm, aligned ATE; K12 once an LM iteration), run twice bit
+               for bit (the dense assembly in a fixed order); the serial
+               graph against the batched one
                on the pairs neither builder retried (edge_T 5e-4, nodes
                5e-3, information rtol 0.05 / atol 50).
  23. loop kernels — K8 (the GNC, csrc/loops.cu) on the arguments phases 7,
@@ -156,14 +164,30 @@ Phases (any failure ends the run with a non-zero exit code):
                on the same tensors: K8's normalised poses within 1e-4 and the
                poses they denormalise to within 5 mm / 0.02 deg; K9's refined
                relative residual within 10x the plain solve's (or under
-               1e-6); each kernel run twice bit for bit; kernel ms, plain ms
-               and host wall, bound, and for K9 at m = 900 a dense
-               torch.linalg.solve of the (6m)^2 system.
+               1e-6); K11 (mutual 1-NN, csrc/mutual_nn.cu) on the features
+               of phase 7's first pair (24576 x 24576 x 33) and of phase
+               22's first chunk: every pick that differs from the plain
+               version's within the expanded form's rounding
+               (mutual_rounding; the count printed), and on integer inputs
+               full of exact ties at the same shape (k11_tie_inputs) ij and
+               ji equal; K12 (csrc/pose_graph.cu) on the edges of phases 9,
+               12 (n = 901) and 22 (the k-graph, dense): blocks within their
+               bound of the plain version's (edge_block_errors), the bands
+               or dense system of the kernel's own blocks bit-equal to the
+               CPU's index_add_ / index_put_ of them; each kernel run twice
+               bit for bit; kernel ms, plain ms and host wall, bound, and
+               for K9 at m = 900 a dense torch.linalg.solve of the (6m)^2
+               system, for K11 torch.cdist and its minima on both axes, for
+               K12's assembly one index_add_ of every edge's packed terms.
 The line before the last is the kernels' JSON record (``launches``: K1-K6,
-K8 and K9 from the CLI's ``full`` run of phase 18, K7 from the brute GICP;
-``max_abs_err`` of K4 over the cloud's real rows, of K8 over the normalised
-poses, of K9 the refined solve's relative residual; the times of K8 at the
-main path's shape, one NCLT pair, and of K9 at m = 900);
+K8, K9, K11 and K12 from the CLI's ``full`` run of phase 18, K7 from the
+brute GICP; ``max_abs_err`` of K4 over the cloud's real rows, of K8 over
+the normalised poses, of K9 the refined solve's relative residual, of K11
+the worst differing pick over its rounding bound, of K12's blocks their
+worst error over its bound and of its assembly the (zero) difference from
+the CPU's; the times of K8 and K11 at the main path's shape, one NCLT pair,
+and of K9 and K12 at n = 901; K12 is two records, ``edge_blocks`` and
+``edge_assembly``, one a launch);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once; K8 needs p and q
 only on the rows of nonzero weight) over 3.35 TB/s and
@@ -171,10 +195,13 @@ its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), counting one d2
 and one compare (9 operations) per (query, candidate) pair and the per-pair
 work of the pairs this run's data keeps (K8: 70 operations a kept row a
 step and about 400 a pair a step; K9: the elimination's count a block
-step); ``library_ms`` is null for K1-K6 and K8, as no single PyTorch call
-computes a banded neighbourhood reduction or the GNC, for K7 the time of
-torch.cdist (direct formula) and its row minimum, and for K9 that of
-torch.linalg.solve on the dense (6m)^2 system.
+step; K11: the 33-term dot and 5 more a pair; K12: EDGE_BLOCK_OPS an edge
+and one addition a term of the assembly); ``library_ms`` is null for K1-K6,
+K8 and K12's blocks, as no single PyTorch call computes a banded
+neighbourhood reduction, the GNC or an SE(3) log's Jacobian, for K7 the
+time of torch.cdist (direct formula) and its row minimum, for K9 that of
+torch.linalg.solve on the dense (6m)^2 system, for K11 torch.cdist and
+its minima on both axes and for K12's assembly one index_add_.
 """
 
 from __future__ import annotations
@@ -680,16 +707,18 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
 
 
 STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments")
-STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh", "gnc")
+STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh", "nn1_mutual", "gnc")
+LM_KERNELS = ("block_thomas", "edge_blocks", "edge_assembly")
 BRUTE_KERNELS = ("nn1",)
 
 
 def _launch_counts() -> list:
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
-    return [nk.LAUNCHES, fk.LAUNCHES, lk.LAUNCHES]
+    return [nk.LAUNCHES, fk.LAUNCHES, lk.LAUNCHES, gk.LAUNCHES]
 
 
 def reset_launches() -> None:
@@ -706,6 +735,24 @@ def check_launched(launches: dict, names, what: str) -> None:
     for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by {what}")
+
+
+def check_lm_launches(launches: dict, what: str, circuit: bool = True) -> None:
+    """K12's two launches once an LM iteration (and, on a circuit, K9's two
+    solves)."""
+    its = launches["edge_blocks"]
+    if not (its > 0 and launches["edge_assembly"] == its
+            and launches["block_thomas"] == (2 * its if circuit else 0)):
+        raise AssertionError(f"{what}: K12 launched {its} / {launches['edge_assembly']} times, "
+                             f"K9 {launches['block_thomas']} times")
+
+
+def check_matching_launches(launches: dict, what: str, exact: bool) -> None:
+    """K11 once a stage-1 pair (at least, where the retry ladder may match
+    a retried pair again)."""
+    k = launches["nn1_mutual"]
+    if not (k == N_SCANS if exact else k >= N_SCANS):
+        raise AssertionError(f"{what}: K11 launched {k} times for {N_SCANS} pairs")
 
 
 LOOP_INPUTS: dict = {}   # (kernel, case) -> a path's first arguments, for phase 23
@@ -734,16 +781,22 @@ def watching(module, name: str, calls: list | None = None, keep=None):
 
 @contextlib.contextmanager
 def plain_loops():
-    """While the block runs, the loop kernels' wrappers are their plain
-    versions (the loops the port ran before K8 and K9), on the card."""
+    """While the block runs, the loop kernels' wrappers (K8, K9, K12) are
+    their plain versions (the code the port ran before them), on the card."""
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
 
-    wrappers = lk.gnc, lk.block_thomas
+    wrappers = lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense
     lk.gnc, lk.block_thomas = lk.gnc_reference, lk.block_thomas_reference
+    gk.edge_blocks = gk.edge_blocks_reference
+    gk.assemble_band = lambda plan, *blocks: gk.assemble_band_reference(
+        plan.n, plan.src.long(), plan.dst.long(), *blocks)
+    gk.assemble_dense = lambda plan, *blocks: gk.assemble_dense_reference(
+        plan.n, plan.src.long(), plan.dst.long(), *blocks)
     try:
         yield
     finally:
-        lk.gnc, lk.block_thomas = wrappers
+        lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense = wrappers
 
 
 def check_pose_files(rel_dir: Path, out: np.ndarray) -> None:
@@ -1028,6 +1081,7 @@ def phase_stage1(clouds, gt, batch_size: int = 1, label: str = "stage 1"):
     5 deg.  Returns (poses, the warm run's launch counts and wall seconds)."""
     from pcr_tpu_torch import pipeline
     from pcr_tpu_torch.models import fgr
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
     chunks = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1038,7 +1092,8 @@ def phase_stage1(clouds, gt, batch_size: int = 1, label: str = "stage 1"):
             chunks.clear()
             with watching(fgr, "batched_registration_fgr", calls=chunks), \
                     watching(fgr, "fgr_from_correspondences",
-                             keep=("gnc", f"NCLT stage 1, batch {batch_size}")):
+                             keep=("gnc", f"NCLT stage 1, batch {batch_size}")), \
+                    watching(nk, "nn1_mutual", keep=("nn1_mutual", "NCLT stage-1 pair")):
                 out = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=N_SCANS, metrics=metrics)
             return cfg, metrics, out
 
@@ -1050,6 +1105,8 @@ def phase_stage1(clouds, gt, batch_size: int = 1, label: str = "stage 1"):
           f"{'chunks' if batch_size > 1 else 'pairs'} {want}")
     if launches["gnc"] != want:
         raise AssertionError(f"{label}: K8 launched {launches['gnc']} times for {want} GNCs")
+    print(f"{label}: K11 (nn1_mutual) launches {launches['nn1_mutual']}, pairs {N_SCANS}")
+    check_matching_launches(launches, label, exact=True)
     worst = 0.0, 0.0
     for k, row in enumerate(metrics.rows):
         e_t, e_r = pose_error(out[k], gt[k])
@@ -1449,7 +1506,7 @@ STAGE3_METHODS = ("LUM", "SLERP", "SLERP_LUM", "pose_graph")
 MAX_STAGE3_ATE_M = 0.05       # aligned ATE of each stage-3 trajectory against ground truth
 MAX_PG_CARD_CPU = 1e-4        # the card's 8-node pose graph against the same graph on the CPU
 MAX_CLOSED_FORM_FILE = 1e-6   # closed forms against outputs/NCLT_poses.npz
-MAIN_KERNELS = STAGE2_KERNELS + ("moments", "spfh", "fpfh", "gnc", "block_thomas")
+MAIN_KERNELS = STAGE2_KERNELS + ("moments", "spfh", "fpfh", "nn1_mutual", "gnc") + LM_KERNELS
 
 
 def synced(fn):
@@ -1474,6 +1531,7 @@ def phase_stage3(clouds, gt, rel2) -> dict:
     from pcr_tpu_torch import pipeline
     from pcr_tpu_torch.models import evaluate
     from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.utils import se3
 
@@ -1481,7 +1539,8 @@ def phase_stage3(clouds, gt, rel2) -> dict:
         def one(run):
             cfg = stage2_config(str(Path(tmp) / run))
             with watching(lk, "block_thomas",
-                          keep=("block_thomas", f"{N_SCANS}-node circuit, m = {N_SCANS - 1}")):
+                          keep=("block_thomas", f"{N_SCANS}-node circuit, m = {N_SCANS - 1}")), \
+                    watching(gk, "edge_blocks", keep=("edge_blocks", f"{N_SCANS}-node circuit")):
                 results = pipeline.run_stage3_global(cfg, relative_poses=rel2, clouds=clouds,
                                                      n=N_SCANS, methods=STAGE3_METHODS)
             with open(Path(cfg.out_dir("metrics")) / "stage3_consistency.json") as fh:
@@ -1489,6 +1548,7 @@ def phase_stage3(clouds, gt, rel2) -> dict:
 
         (cfg, results, record), launches, wall = timed_runs("stage 3", ("cold", "warm"), one)
     check_launched(launches, ("nn1_band", "block_thomas"), "stage 3")
+    check_lm_launches(launches, "stage 3")
     print(f"stage 3: the four methods over {N_SCANS} scans; pose graph "
           f"{record['pose_graph']['optimizer']}")
     split = {name: synced(lambda f=f: f(rel2))[1] for name, f in (
@@ -1539,6 +1599,7 @@ def phase_stage3_nclt(dev) -> None:
 
     from pcr_tpu_torch.models import evaluate
     from pcr_tpu_torch.models.global_refine import closed_form, pose_graph
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.utils import se3
 
@@ -1556,13 +1617,15 @@ def phase_stage3_nclt(dev) -> None:
             raise AssertionError(f"NCLT {name} is {err} off the file's {key}")
     graph = nclt_graph(rel, dev, np.eye(6, dtype=np.float32))
     reset_launches()
-    with watching(lk, "block_thomas", keep=("block_thomas", f"NCLT circuit, m = {n - 1}")):
+    with watching(lk, "block_thomas", keep=("block_thomas", f"NCLT circuit, m = {n - 1}")), \
+            watching(gk, "edge_blocks", keep=("edge_blocks", f"NCLT circuit, n = {n}")):
         (out, info), wall = synced(lambda: pose_graph.global_optimization(
             graph, max_correspondence_distance=0.2, return_info=True))
     launches = read_launches()
     its = info["pass1_iterations"] + info["pass2_iterations"]
-    if launches["block_thomas"] != 2 * its:
-        raise AssertionError(f"NCLT pose graph: K9 launched {launches['block_thomas']} times "
+    check_lm_launches(launches, "NCLT pose graph")
+    if launches["edge_blocks"] != its:
+        raise AssertionError(f"NCLT pose graph: K12 launched {launches['edge_blocks']} times "
                              f"in {its} LM iterations")
     l = torch.ones(n, device=dev)
     diag, off, b = pose_graph._build_tridiag(graph, graph.nodes, l)
@@ -1571,15 +1634,23 @@ def phase_stage3_nclt(dev) -> None:
         synced(lambda: pose_graph._block_thomas_solve(D, U, rhs))[1] for _ in range(5))
     thomas_plain = statistics.median(
         synced(lambda: lk.block_thomas_reference(D, U, rhs))[1] for _ in range(3))
+    plan = gk.assembly_plan(n, graph.edge_src, graph.edge_dst)
     blocks = statistics.median(
-        synced(lambda: pose_graph._build_tridiag(graph, graph.nodes, l))[1] for _ in range(5))
+        synced(lambda: pose_graph._build_tridiag(graph, graph.nodes, l, plan=plan))[1]
+        for _ in range(5))
+    with plain_loops():
+        blocks_plain = statistics.median(
+            synced(lambda: pose_graph._build_tridiag(graph, graph.nodes, l, plan=plan))[1]
+            for _ in range(3))
     ms_it = wall / its * 1e3
     print(f"NCLT pose graph (n={n}, identity information, card): {wall:.3f} s, iterations "
           f"{info['pass1_iterations']} + {info['pass2_iterations']}, {ms_it:.1f} ms/iteration, "
-          f"K9 launches {launches['block_thomas']}; one block-Thomas solve "
+          f"K9 launches {launches['block_thomas']}, K12 launches {launches['edge_blocks']} + "
+          f"{launches['edge_assembly']}; one block-Thomas solve "
           f"{thomas * 1e3:.2f} ms (two an iteration: {2 * thomas * 1e3 / ms_it:.0%} of it; "
-          f"the plain loops {thomas_plain * 1e3:.1f} ms), Hessian blocks "
-          f"{blocks * 1e3:.1f} ms; {info}")
+          f"the plain loops {thomas_plain * 1e3:.1f} ms), Hessian blocks and bands (K12) "
+          f"{blocks * 1e3:.2f} ms ({blocks * 1e3 / ms_it:.0%} of an iteration; the plain "
+          f"jvp blocks and index_add_ {blocks_plain * 1e3:.1f} ms); {info}")
     c = evaluate.circuit_edge_consistency(out.nodes.double().cpu().numpy(), rel,
                                           convention="standard")
     # both passes stop at the 100-iteration cap on this graph, at costs that
@@ -1608,10 +1679,11 @@ def nclt_graph(rel, dev, info):
 
 
 def pose_graph_pair(label: str, graph, rel) -> None:
-    """The n=901 pose graph through K9 against the same on the plain Thomas
-    loops, both on the card, at test_global_optimization_at_n901_matches's
-    bounds (its docstring: a step solves a system of condition ~n^2 in
-    float32): the same pruning and re-seeding, mu within 1e-6, the same edge
+    """The n=901 pose graph through K9 and K12 against the same on the plain
+    loops (the jvp blocks, index_add_ and the Thomas loops), both on the
+    card, at test_global_optimization_at_n901_matches's bounds (its
+    docstring: a step solves a system of condition ~n^2 in float32): the
+    same pruning and re-seeding, mu within 1e-6, the same edge
     mask, final costs within 1% and the consistency summaries within 1e-4
     relative plus 1e-4."""
     import torch
@@ -1624,7 +1696,8 @@ def pose_graph_pair(label: str, graph, rel) -> None:
             graph, max_correspondence_distance=0.2, return_info=True))
         c = evaluate.circuit_edge_consistency(out.nodes.double().cpu().numpy(), rel,
                                               convention="standard")
-        print(f"NCLT pose graph ({label}) {'on the plain Thomas loops' if plain else 'through K9'}: "
+        print(f"NCLT pose graph ({label}) "
+              f"{'on the plain loops' if plain else 'through K9 and K12'}: "
               f"{wall:.3f} s, iterations {info['pass1_iterations']} + "
               f"{info['pass2_iterations']}; {info}")
         return out, info, c
@@ -1643,15 +1716,15 @@ def pose_graph_pair(label: str, graph, rel) -> None:
         bad.append("pass1_line_process_min")
     if not torch.equal(out.edge_mask, out_p.edge_mask):
         bad.append("edge_mask")
-    print(f"NCLT pose graph ({label}), K9 against the plain loops: final costs "
+    print(f"NCLT pose graph ({label}), K9 and K12 against the plain loops: final costs "
           f"{info['pass1_final_cost']:.6g} / {info_p['pass1_final_cost']:.6g} and "
           f"{info['pass2_final_cost']:.6g} / {info_p['pass2_final_cost']:.6g}, pruned "
           f"{info['pruned_edges']} / {info_p['pruned_edges']}; consistency "
           + ", ".join(f"{k} {c[k]:.6g} / {v:.6g}" for k, v in c_p.items()
                       if isinstance(v, float)))
     if bad:
-        raise AssertionError(f"NCLT pose graph ({label}) through K9 differs from the plain "
-                             f"loops: {bad}")
+        raise AssertionError(f"NCLT pose graph ({label}) through K9 and K12 differs from the "
+                             f"plain loops: {bad}")
 
 
 def phase_full(clouds, rel1, rel2, staged_s: float):
@@ -1683,6 +1756,8 @@ def phase_full(clouds, rel1, rel2, staged_s: float):
         if not (np.isfinite(poses).all() and poses.shape == (N_SCANS, 4, 4)):
             raise AssertionError(f"run_full stage 3 {name} is not finite")
     check_launched(launches, MAIN_KERNELS, "run_full")
+    check_matching_launches(launches, "run_full", exact=False)
+    check_lm_launches(launches, "run_full")
     return launches, out, wall
 
 
@@ -1756,6 +1831,8 @@ def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[d
                                                 "--output-root", str(out_root)]))
         launches = read_launches()
         check_launched(launches, MAIN_KERNELS, "python -m pcr_tpu_torch full")
+        check_matching_launches(launches, "python -m pcr_tpu_torch full", exact=False)
+        check_lm_launches(launches, "python -m pcr_tpu_torch full")
         rel_dir = out_root / "relative_poses_FGR_GICP" / "NCLT"
         d1 = float(np.abs(poses_io.load_relative_circuit(
             str(out_root / "relative_poses_FGR" / "NCLT"), N_SCANS) - full_out["stage1"]).max())
@@ -2240,6 +2317,8 @@ def phase_graph_builder(dev) -> None:
 
     from pcr_tpu_torch.models import evaluate, fgr, graph_builder
     from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
     from pcr_tpu_torch.utils import cloud
 
     scans, absolute = make_facade_circuit()
@@ -2267,7 +2346,8 @@ def phase_graph_builder(dev) -> None:
         torch.cuda.reset_peak_memory_stats()
         with ladder_seeds(seeds), watching(fgr, "fgr_from_correspondences",
                                            keep=("gnc", f"Facade graph builder, batch "
-                                                        f"{FACADE_BATCH}")):
+                                                        f"{FACADE_BATCH}")), \
+                watching(nk, "nn1_mutual", keep=("nn1_mutual", "Facade graph builder")):
             graph, wall = synced(lambda: build(log.append))
         launches = read_launches()
         pairs = list(zip(graph.edge_src.tolist(), graph.edge_dst.tolist()))
@@ -2290,9 +2370,29 @@ def phase_graph_builder(dev) -> None:
         check_launched(launches, STAGE2_KERNELS + ("gnc",), f"the {name} builder")
 
     truth = np.stack([np.linalg.inv(absolute[0]) @ A for A in absolute])
-    (out, info), wall_opt = synced(lambda: pose_graph.global_optimization(
-        graphs["batched"], max_correspondence_distance=0.2, edge_prune_threshold=0.25,
-        return_info=True))
+
+    def optimise():
+        return pose_graph.global_optimization(
+            graphs["batched"], max_correspondence_distance=0.2, edge_prune_threshold=0.25,
+            return_info=True)
+
+    reset_launches()
+    with watching(gk, "edge_blocks", keep=("edge_blocks", "Facade k-graph")):
+        (out, info), wall_opt = synced(optimise)
+    launches = read_launches()
+    check_lm_launches(launches, "global_optimization of the k-graph", circuit=False)
+    if launches["edge_blocks"] != info["pass1_iterations"] + info["pass2_iterations"]:
+        raise AssertionError(f"K12 launched {launches['edge_blocks']} times in {info}")
+    # the same graph again: the fixed-order assembly gives the same bits (F8)
+    out2, info2 = optimise()
+    same = (torch.equal(out.nodes, out2.nodes) and torch.equal(out.edge_mask, out2.edge_mask)
+            and info == info2)
+    print(f"global_optimization run twice: {'bit for bit' if same else 'DIFFERENT'} (nodes "
+          f"within {float((out.nodes - out2.nodes).abs().max()):.3e}); K12 launches "
+          f"{launches['edge_blocks']} + {launches['edge_assembly']} in "
+          f"{info['pass1_iterations'] + info['pass2_iterations']} LM iterations")
+    if not same:
+        raise AssertionError("global_optimization of the k-graph differs between two runs")
     nodes = out.nodes.double().cpu().numpy()
     errs = [pose_error(nodes[i], truth[i]) for i in range(n)]
     ate = evaluate.aligned_ate(nodes, truth)
@@ -2478,23 +2578,296 @@ def check_k9(label: str, args, library: bool):
     return r_k, ms, plain_ms, *lim, lib_ms
 
 
+# ---------------------------------------------------------------------------
+# K11 (mutual 1-NN) and K12 (the pose graph's edge blocks and assembly)
+# ---------------------------------------------------------------------------
+
+UNIT_ROUNDOFF = 2.0 ** -24
+# Two expanded d2 = (|a|^2 + |b|^2) - 2 a.b of nonnegative 33-dim features,
+# summed in different orders, may each be off by (33 + 33 + 33 + 2) u of
+# (|a|^2 + |b|^2) (the dot product's gamma_33 doubled, either norm's
+# gamma_33, two roundings): a pick that differs from the plain version's is
+# right to rounding when its exact d2 is within twice that of the plain
+# pick's.
+MUTUAL_ROUND_UNITS = 2 * 101
+MUTUAL_PAIR_OPS = 2 * 33 + 5   # FP32 operations a pair: the dot, d2, two compares
+# K12's blocks against the plain version's (float32 evaluations of the same
+# function through other orders of operations; the poses lie up to ~1 km
+# from the origin): H within this share of the edge's largest H entry; b
+# within 6 |LJ|max (rho + this share of |r|max), rho = 16 roundings of the
+# edge's largest translation, the residual's own float32 noise.
+EDGE_BLOCK_REL = 1e-4
+EDGE_RESIDUAL_ROUNDINGS = 16
+# FP32 operations of an edge in csrc/pose_graph.cu, a reckoning: 12 forward
+# passes of ~700 (two composes, an inverse, the logs, in dual numbers), then
+# LJ (864), the three H (1296) and the two b (144).
+EDGE_BLOCK_OPS = 12 * 700 + 864 + 1296 + 144
+
+
+def k_graph(n: int, k: int, dev, seed: int = 0):
+    """A seeded pose graph of n nodes round a loop, edges (i, i+1), ...,
+    (i, i+k) (mod n) from every node i, so every node is the source of k
+    edges and the target of k: the odometry edges certain, the others
+    uncertain; nodes a few metres apart with 0.2 rad of rotation, edges 1 cm
+    / 0.01 rad off the truth, nodes 2 cm / 0.02 rad off it; information
+    matrices SPD (A A^T 100 + 1000 I)."""
+    import torch
+
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.utils import se3
+
+    rng = np.random.default_rng(seed)
+    xi = np.concatenate([rng.normal(0, 0.2, (n, 3)), rng.normal(0, 5.0, (n, 3))], axis=1)
+    truth = se3.se3_exp(torch.as_tensor(xi, dtype=torch.float64)).numpy()
+    src = np.repeat(np.arange(n), k)
+    dst = (src + np.tile(np.arange(1, k + 1), n)) % n
+    edge_T = np.stack([np.linalg.inv(truth[t]) @ truth[s] for s, t in zip(src, dst)])
+    edge_T = se3.se3_exp(torch.as_tensor(rng.normal(0, 0.01, (len(src), 6)))).numpy() @ edge_T
+    A = rng.normal(0, 1, (len(src), 6, 6))
+    info = A @ A.transpose(0, 2, 1) * 100 + np.eye(6) * 1000
+    nodes = truth @ se3.se3_exp(torch.as_tensor(rng.normal(0, 0.02, (n, 6)))).numpy()
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    return pose_graph.PoseGraph(
+        nodes=f32(nodes), edge_src=torch.as_tensor(src, device=dev),
+        edge_dst=torch.as_tensor(dst, device=dev), edge_T=f32(edge_T), edge_info=f32(info),
+        uncertain=torch.as_tensor(dst != (src + 1) % n, device=dev),
+        edge_mask=torch.ones(len(src), dtype=torch.bool, device=dev))
+
+
+def k11_tie_inputs(na: int, nb: int, seed: int = 0):
+    """(a, a_mask, b, b_mask) numpy inputs full of exact ties: features in
+    {0, 1, 2} (every product, sum and norm of the expanded d2 exact in
+    float32, so the kernel and the plain version compute the same d2 and
+    must tie alike), a tenth of the rows all zero, rows duplicated across
+    every 128-row kernel tile and 2048-row plain tile boundary, masked runs
+    across those boundaries, and the last b rows masked (columns no valid
+    a-row reaches)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 3, (na, 33)).astype(np.float32)
+    b = rng.integers(0, 3, (nb, 33)).astype(np.float32)
+    a[::10], b[::10] = 0.0, 0.0
+    a_mask, b_mask = np.ones(na, bool), np.ones(nb, bool)
+    for x, mask in ((a, a_mask), (b, b_mask)):
+        n = len(x)
+        for edge in list(range(128, n, 128)) + list(range(2048, n, 2048)):
+            m = min(2, n - edge)
+            x[edge: edge + m] = x[edge - m: edge]      # a tie straddling the boundary
+            if edge % 512 == 0:
+                mask[max(edge - 3, 0): edge + 3] = False
+    b_mask[-min(5, nb - 1):] = False
+    m = min(20, nb, na - na // 2)
+    a[na // 2: na // 2 + m] = b[:m]                       # exact d2 = 0 matches
+    return a, a_mask, b, b_mask
+
+
+def mutual_rounding(a, a_mask, b, b_mask, pick_k, pick_p) -> tuple[int, float]:
+    """(rows whose kernel pick differs from the plain pick, the largest
+    |exact d2 of the kernel's pick - exact d2 of the plain pick| over
+    MUTUAL_ROUND_UNITS u of (|a|^2 + |b|^2)), exact d2 in float64; a row of
+    ``a`` picks a row of ``b``."""
+    import torch
+
+    rows = torch.nonzero(pick_k.long() != pick_p.long()).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    q = a[rows].double()
+    rk, rp = b[pick_k[rows].long()].double(), b[pick_p[rows].long()].double()
+    dk, dp = ((q - rk) ** 2).sum(-1), ((q - rp) ** 2).sum(-1)
+    scale = (q * q).sum(-1) + torch.maximum((rk * rk).sum(-1), (rp * rp).sum(-1))
+    # a pick may differ only between two valid pairs: where the plain pick is
+    # no valid pair (every partner masked) the kernel must pick it too
+    valid = a_mask[rows] & b_mask[pick_p[rows].long()] & b_mask[pick_k[rows].long()]
+    ratio = (dk - dp).abs() / (MUTUAL_ROUND_UNITS * UNIT_ROUNDOFF * scale)
+    return int(rows.numel()), float(torch.where(valid, ratio, float("inf")).max())
+
+
+def check_k11_ties(na: int, nb: int, dev) -> None:
+    """K11 on k11_tie_inputs(na, nb): ij and ji equal to the plain version's."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    a, am, b, bm = (torch.as_tensor(x, device=dev) for x in k11_tie_inputs(na, nb, na + nb))
+    ij_k, ji_k = nk.nn1_mutual(a, am, b, bm)
+    ij_p, ji_p = nk.nn1_mutual_reference(a, am, b, bm)
+    torch.cuda.synchronize()
+    if not (torch.equal(ij_k.long(), ij_p) and torch.equal(ji_k.long(), ji_p)):
+        raise AssertionError(f"K11 ties {na} x {nb}: {int((ij_k.long() != ij_p).sum())} rows "
+                             f"and {int((ji_k.long() != ji_p).sum())} columns differ")
+
+
+def check_k11(label: str, args, library: bool):
+    """K11 on a path's nn1_mutual arguments against its plain version: two
+    kernel runs bit for bit; every row (a -> b) and column (b -> a) whose
+    pick differs from the plain pick within the expanded form's rounding
+    (mutual_rounding), the count printed; exact ties at the same shape
+    (k11_tie_inputs) resolved alike.  Returns (worst rounding ratio, ms,
+    plain ms, bound ms, bound by, library ms: torch.cdist, whose large
+    shapes use the same expanded formula, and its minimum on both axes)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    a, am, b, bm = args
+    na, nb = a.shape[0], b.shape[0]
+    ij_k, ji_k = nk.nn1_mutual(a, am, b, bm)
+    ij_k2, ji_k2 = nk.nn1_mutual(a, am, b, bm)
+    ij_p, ji_p = nk.nn1_mutual_reference(a, am, b, bm)
+    torch.cuda.synchronize()
+    if not (torch.equal(ij_k, ij_k2) and torch.equal(ji_k, ji_k2)):
+        raise AssertionError(f"K11 {label}: two runs differ")
+    rows, worst_r = mutual_rounding(a, am, b, bm, ij_k, ij_p)
+    cols, worst_c = mutual_rounding(b, bm, a, am, ji_k, ji_p)
+    worst = max(worst_r, worst_c)
+    check_k11_ties(na, nb, a.device)
+    ms = cuda_ms(lambda: nk.nn1_mutual(a, am, b, bm), 10)
+    plain = cuda_ms(lambda: nk.nn1_mutual_reference(a, am, b, bm), 3)
+    lib = None
+    if library:
+        def cdist_min():
+            d = torch.cdist(a, b)
+            return d.min(dim=1), d.min(dim=0)
+        lib = cuda_ms(cdist_min, 3)
+    lim = bound(4 * 33 * (na + nb) + 9 * (na + nb), MUTUAL_PAIR_OPS * na * nb)
+    print(f"K11 nn1_mutual {label}: {na} x {nb} rows of 33 ({int(am.sum())} / {int(bm.sum())} "
+          f"valid), two runs bit for bit; picks differing from the plain version's: {rows} "
+          f"rows, {cols} columns, each within {worst:.3f} of the rounding bound "
+          f"({MUTUAL_ROUND_UNITS} u of |a|^2 + |b|^2); exact ties at this shape equal; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {lim[0]:.4f} ms ({lim[1]}), library "
+          f"(cdist + min on both axes) {'not timed' if lib is None else f'{lib:.4f} ms'}")
+    if not worst <= 1.0:
+        raise AssertionError(f"K11 {label}: a differing pick is {worst} of the rounding bound")
+    return worst, ms, plain, *lim, lib
+
+
+def edge_block_errors(args, blocks) -> float:
+    """The largest error of K12's blocks against the plain version's on the
+    same arguments, over its bound (EDGE_BLOCK_REL, module constants)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
+    from pcr_tpu_torch.utils import se3
+
+    nodes, src, dst, edge_T, info, w = args
+    plain = gk.edge_blocks_reference(*args)
+    Tinv = se3.invert(edge_T)
+    r = gk.edge_residual(nodes[src], nodes[dst], Tinv)
+    Ji, Jj = gk.edge_jacobians(nodes[src], nodes[dst], Tinv)
+    LJ = (w[:, None, None] * info) @ torch.cat([Ji, Jj], dim=-1)
+    t_max = torch.stack([nodes[src][:, :3, 3].abs().amax(-1), nodes[dst][:, :3, 3].abs().amax(-1),
+                         edge_T[:, :3, 3].abs().amax(-1)]).amax(0)
+    rho = EDGE_RESIDUAL_ROUNDINGS * 2.0 ** -23 * (1.0 + t_max)
+    h_scale = torch.stack([x.abs().flatten(1).amax(1) for x in plain[:3]]).amax(0)
+    b_scale = 6 * LJ.abs().flatten(1).amax(1) * (rho + EDGE_BLOCK_REL * r.abs().amax(1))
+    worst = 0.0
+    for k, p, name in zip(blocks, plain, gk.BLOCKS_PER_EDGE):
+        err = (k - p).abs().flatten(1).amax(1)
+        lim = EDGE_BLOCK_REL * h_scale if name[0] == "H" else b_scale
+        if not bool(torch.isfinite(k).all()):
+            return float("inf")
+        worst = max(worst, float((err / torch.clamp(lim, min=1e-30)).max()))
+    return worst
+
+
+def check_k12(label: str, args, library: bool):
+    """K12 on a path's edge_blocks arguments: the blocks within their bound
+    of the plain version's (edge_block_errors), two runs bit for bit; the
+    assembly of the kernel's own blocks (the circuit's bands, or the dense
+    system of any other graph) bit-equal to the CPU's plain index_add_ /
+    index_put_ assembly of the same blocks, twice.  Returns two records'
+    results: (blocks: worst ratio, ms, plain ms, bound ms, bound by, None),
+    (assembly: 0, ms, plain ms on the card, bound ms, bound by, library ms:
+    one index_add_ of every edge's packed terms, circuits only)."""
+    import torch
+
+    from pcr_tpu_torch.models.global_refine import pose_graph
+    from pcr_tpu_torch.ops.kernels import graph_kernels as gk
+
+    nodes, src, dst, edge_T, info, w = args
+    n, E = nodes.shape[0], src.shape[0]
+    dense = not pose_graph.is_circuit_graph(pose_graph.PoseGraph(nodes, src, dst, edge_T, info,
+                                                                 None, None))
+    blocks = gk.edge_blocks(*args)
+    blocks2 = gk.edge_blocks(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(blocks, blocks2)):
+        raise AssertionError(f"K12 {label}: two runs of the blocks differ")
+    worst = edge_block_errors(args, blocks)
+    plan = gk.assembly_plan(n, src, dst, dense=dense)
+    assemble = gk.assemble_dense if dense else gk.assemble_band
+    reference = gk.assemble_dense_reference if dense else gk.assemble_band_reference
+    got, got2 = assemble(plan, *blocks), assemble(plan, *blocks)
+    cpu = reference(n, src.cpu(), dst.cpu(), *(x.cpu() for x in blocks))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, got2)):
+        raise AssertionError(f"K12 {label}: two assemblies differ")
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(got, cpu)):
+        raise AssertionError(f"K12 {label}: the assembly differs from the CPU's index_add_ by "
+                             + ", ".join(f"{float((x.cpu() - y).abs().max()):.3e}"
+                                         for x, y in zip(got, cpu)))
+    ms = cuda_ms(lambda: gk.edge_blocks(*args), 20)
+    plain_ms, plain_wall = plain_times(lambda: gk.edge_blocks_reference(*args), 3)
+    ms_a = cuda_ms(lambda: assemble(plan, *blocks), 20)
+    plain_a = cuda_ms(lambda: reference(n, src, dst, *blocks), 5)
+    lib = None
+    if library and not dense:
+        rows = torch.cat([src, dst])
+        Hii, Hjj, Hij, bi, bj = blocks
+        adj = (dst == src + 1)[:, None, None]
+        packed = torch.cat([torch.cat([Hii.flatten(1), torch.where(adj, Hij, 0.0).flatten(1), bi],
+                                      1),
+                            torch.cat([Hjj.flatten(1), torch.zeros_like(Hij).flatten(1), bj], 1)])
+        lib = cuda_ms(lambda: nodes.new_zeros((n, 78)).index_add_(0, rows, packed), 20)
+    in_bytes = 64 * n + 8 * E + (64 + 144 + 4) * E
+    lim_b = bound(in_bytes + 480 * E, EDGE_BLOCK_OPS * E)
+    terms = (36 * n * n + 6 * n) if dense else 78 * n
+    adds = (4 * 36 + 12) * E if dense else (2 * 36 + 36 + 12) * E
+    lim_a = bound(480 * E + 4 * (n + 1) + 8 * E + 4 * terms, adds)
+    print(f"K12 edge_blocks {label}: {n} nodes, {E} edges ({'dense' if dense else 'bands'}); "
+          f"blocks within {worst:.3f} of their bound of the plain version's, two runs bit for "
+          f"bit; the assembly of the kernel's blocks bit-equal to the CPU's index_add_, twice; "
+          f"blocks kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (host {plain_wall:.3f} ms), bound "
+          f"{lim_b[0]:.6f} ms ({lim_b[1]}); assembly kernel {ms_a:.4f} ms, plain (index_add_ "
+          f"on the card) {plain_a:.4f} ms, bound {lim_a[0]:.6f} ms ({lim_a[1]})"
+          + (f", one index_add_ {lib:.4f} ms" if lib is not None else ""))
+    if not worst <= 1.0:
+        raise AssertionError(f"K12 {label}: blocks {worst} of their bound from the plain ones")
+    return (worst, ms, plain_ms, *lim_b, None), (0.0, ms_a, plain_a, *lim_a, lib)
+
+
 def phase_loop_kernels() -> list[dict]:
-    """Phase 23 (module docstring): K8 and K9 against their plain versions
-    on the arguments the earlier phases gave them.  The JSON record keeps
-    K8's times at the main path's shape (the NCLT stage 1 at batch 1: the
-    CLI's ``full`` streams stage 1, one launch a pair) and K9's at NCLT's
-    m = 900."""
+    """Phase 23 (module docstring): K8, K9, K11 and K12 against their plain
+    versions on the arguments the earlier phases gave them.  The JSON record
+    keeps K8's and K11's times at the main path's shape (one NCLT stage-1
+    pair: the CLI's ``full`` streams stage 1, one launch a pair) and K9's
+    and K12's at NCLT's n = 901."""
     gnc = {case: check_k8(case, args) for (name, case), args in LOOP_INPUTS.items()
            if name == "gnc"}
     thomas = {case: check_k9(case, args, library=case.startswith("NCLT"))
               for (name, case), args in LOOP_INPUTS.items() if name == "block_thomas"}
-    if len(gnc) != 3 or len(thomas) != 2:
+    mutual = {case: check_k11(case, args, library=case.startswith("NCLT"))
+              for (name, case), args in LOOP_INPUTS.items() if name == "nn1_mutual"}
+    edges = {case: check_k12(case, args, library=case.startswith("NCLT"))
+             for (name, case), args in LOOP_INPUTS.items() if name == "edge_blocks"}
+    if len(gnc) != 3 or len(thomas) != 2 or len(mutual) != 2 or len(edges) != 3:
         raise AssertionError(f"phase 23 lacks inputs: {sorted(LOOP_INPUTS)}")
+    nclt_edges = next(r for case, r in edges.items() if case.startswith("NCLT"))
     return [record("gnc", "pcr_tpu_torch/csrc/loops.cu", "pcr_tpu/models/fgr.py:166",
                    list(gnc.values()), gnc["NCLT stage 1, batch 1"]),
             record("block_thomas", "pcr_tpu_torch/csrc/loops.cu",
                    "pcr_tpu/models/global_refine/pose_graph.py:173", list(thomas.values()),
-                   next(r for case, r in thomas.items() if case.startswith("NCLT")))]
+                   next(r for case, r in thomas.items() if case.startswith("NCLT"))),
+            record("nn1_mutual", "pcr_tpu_torch/csrc/mutual_nn.cu", "pcr_tpu/ops/knn.py:305",
+                   list(mutual.values()), mutual["NCLT stage-1 pair"]),
+            record("edge_blocks", "pcr_tpu_torch/csrc/pose_graph.cu",
+                   "pcr_tpu/models/global_refine/pose_graph.py:100",
+                   [r[0] for r in edges.values()], nclt_edges[0]),
+            record("edge_assembly", "pcr_tpu_torch/csrc/pose_graph.cu",
+                   "pcr_tpu/models/global_refine/pose_graph.py:243",
+                   [r[1] for r in edges.values()], nclt_edges[1])]
 
 
 def main() -> int:

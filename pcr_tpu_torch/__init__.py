@@ -13,9 +13,10 @@ runners, ``point_mesh=`` of ``run_pair``, the CLI's ``--devices`` and
 (``models/graph_builder``) with its extras (``models/features``,
 ``models/manual``).  The seven Pallas kernels those paths run (K1-K7) are
 hand-written CUDA kernels here (``csrc/``, bound in ``ops/kernels/``), and
-so are two loops that ``pcr_tpu`` compiles into one program each: FGR's GNC
-(K8) and the pose graph's block-Thomas solve (K9); on CPU tensors every
-wrapper runs its plain PyTorch version instead.  Clouds
+so are four programs that ``pcr_tpu`` compiles with XLA: FGR's GNC (K8),
+the pose graph's block-Thomas solve (K9), FGR's mutual feature matching
+(K11) and the pose graph's edge Jacobians, blocks and their assembly (K12);
+on CPU tensors every wrapper runs its plain PyTorch version instead.  Clouds
 and loaded scans go to the CUDA card unless the caller asks for the CPU.
 
 Importing this package never imports ``jax`` or ``pcr_tpu``.

@@ -25,15 +25,22 @@ and stays fixed; twist and block order (omega, t), as in ``utils/se3`` and
 the information matrices of ``models/evaluate``.
 
 Design on the card, float32 throughout:
-  * Per-edge Jacobians by forward-mode AD (``torch.func.jvp`` vmapped over
-    the 12 basis directions, ``_edge_jacobians``) through the port's
-    ``se3_exp`` / ``se3_log``: the maths the JAX package differentiates with
-    ``jax.vmap(jax.jacfwd(...))``, so both packages linearise the identical
-    function (closed-form SE(3) Jacobians would be a second derivation to
-    keep equal to it).  Forward mode through ``torch.where`` passes only the
-    selected branch's tangent, so the small-angle branches at zero residual
-    (every odometry edge of the standard-chain start) leak no NaN from the
-    branch not taken.
+  * Per-edge Jacobians and Gauss-Newton blocks in one launch of kernel K12
+    (``ops/kernels/graph_kernels.edge_blocks``): the residual and its 12
+    directional derivatives in forward mode through the port's
+    ``se3_exp`` / ``se3_log``, the function the JAX package differentiates
+    with ``jax.vmap(jax.jacfwd(...))``, so both packages linearise the
+    identical function.  The plain version, the CPU path, is
+    ``torch.func.jvp`` vmapped over the 12 basis directions
+    (``_edge_jacobians``); forward mode passes only the selected branch's
+    tangent, so the small-angle branches at zero residual (every odometry
+    edge of the standard-chain start) leak no NaN from the branch not taken.
+  * The blocks are summed into the normal equations in a fixed order (K12's
+    second launch, ``graph_kernels.assemble_band`` / ``assemble_dense``): each
+    node's terms sorted once a graph by (target, kind, edge), the order of
+    the CPU's sequential ``index_add_``, so the card's assembly has the CPU
+    assembly's bits, run after run (the scatter-adds it replaces used float
+    atomics on the card).
   * Circuit graphs (edges (i, i+1) and the loop edge (n-1, 0)) are solved
     by 6x6 block-Thomas elimination in O(n): the forward and the backward
     sweep (the counterpart of two ``lax.scan``s) are one launch of kernel K9
@@ -56,9 +63,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jvp, vmap
 
-from ...ops.kernels import loop_kernels
+from ...ops.kernels import graph_kernels, loop_kernels
 from ...utils import collectives
 from ...utils import se3
 from ...utils.cloud import _placement
@@ -98,32 +104,10 @@ def build_circuit_graph(absolute_poses, relative_poses, info_matrices,
         edge_mask=torch.ones(n, dtype=torch.bool, device=device))
 
 
-def _edge_residual(X_i, X_j, T_edge_inv):
-    return se3.se3_log(T_edge_inv @ se3.invert(X_j) @ X_i)
-
-
-def _edge_residual_perturbed(delta_i, delta_j, X_i, X_j, T_edge_inv):
-    return _edge_residual(se3.se3_exp(delta_i) @ X_i, se3.se3_exp(delta_j) @ X_j, T_edge_inv)
-
-
-def _edge_jacobians(X_i, X_j, T_edge_inv):
-    """(E, 6, 6) d r / d delta_i and d r / d delta_j of every edge at
-    delta = 0, by forward-mode AD: one ``jvp`` of the batched residual for
-    each of the 12 basis directions, vmapped over the directions (what
-    ``jacfwd`` does, with the edges kept as a batch dimension inside; a
-    per-edge vmap would make each edge's angle a 0-dim tensor, whose
-    tangent torch promotes to float64 when it is scaled by a Python
-    number)."""
-    E = X_i.shape[0]
-    zeros = X_i.new_zeros((E, 6))
-    basis = torch.eye(12, dtype=X_i.dtype, device=X_i.device)[:, None, :].expand(12, E, 12)
-
-    def column(t):
-        return jvp(lambda di, dj: _edge_residual_perturbed(di, dj, X_i, X_j, T_edge_inv),
-                   (zeros, zeros), (t[:, :6], t[:, 6:]))[1]
-
-    J = vmap(column)(basis).permute(1, 2, 0)              # (E, 6 residual, 12)
-    return J[..., :6], J[..., 6:]
+# the residual and the Jacobians' plain version live beside K12; the tests
+# and tools name them here, as pcr_tpu does
+_edge_residual = graph_kernels.edge_residual
+_edge_jacobians = graph_kernels.edge_jacobians
 
 
 def _edge_rTr(graph: PoseGraph, nodes):
@@ -185,69 +169,50 @@ class LMResult(NamedTuple):
 
 def _edge_blocks(graph: PoseGraph, nodes, l):
     """Per-edge Gauss-Newton blocks at (nodes, l): H_ii, H_jj, H_ij (E, 6, 6)
-    and b_i, b_j (E, 6), each edge weighted by l * mask."""
-    r, _ = _edge_rTr(graph, nodes)
-    w = (l * graph.edge_mask.to(torch.float32))[:, None, None]
-    Ji, Jj = _edge_jacobians(nodes[graph.edge_src], nodes[graph.edge_dst],
-                             se3.invert(graph.edge_T))
-    LJi = (w * graph.edge_info) @ Ji
-    LJj = (w * graph.edge_info) @ Jj
-    Hii = Ji.transpose(1, 2) @ LJi
-    Hjj = Jj.transpose(1, 2) @ LJj
-    Hij = Ji.transpose(1, 2) @ LJj
-    bi = torch.einsum("eji,ej->ei", LJi, r)
-    bj = torch.einsum("eji,ej->ei", LJj, r)
-    return Hii, Hjj, Hij, bi, bj
+    and b_i, b_j (E, 6), each edge weighted by l * mask (K12's first launch
+    on the card)."""
+    return graph_kernels.edge_blocks(nodes, graph.edge_src, graph.edge_dst, graph.edge_T,
+                                     graph.edge_info, l * graph.edge_mask.to(torch.float32))
 
 
-def _gradient(graph: PoseGraph, bi, bj):
-    n = graph.nodes.shape[0]
-    return graph.nodes.new_zeros((n, 6)).index_add_(0, graph.edge_src, bi).index_add_(
-        0, graph.edge_dst, bj)
+def _plan(graph: PoseGraph, dense: bool) -> graph_kernels.AssemblyPlan:
+    return graph_kernels.assembly_plan(graph.nodes.shape[0], graph.edge_src, graph.edge_dst,
+                                       dense=dense)
 
 
-def _build_dense(graph: PoseGraph, nodes, l, group=None):
+def _build_dense(graph: PoseGraph, nodes, l, group=None, plan=None):
     """The (6n, 6n) Hessian and (6n,) gradient of the whole graph (summed
-    over ``group``'s edge shards)."""
+    over ``group``'s edge shards); ``plan``: the graph's dense
+    ``assembly_plan``, built here if not given."""
     n = graph.nodes.shape[0]
-    src, dst = graph.edge_src, graph.edge_dst
-    Hii, Hjj, Hij, bi, bj = _edge_blocks(graph, nodes, l)
-    H = graph.nodes.new_zeros((n, n, 6, 6))
-    H.index_put_((src, src), Hii, accumulate=True)
-    H.index_put_((dst, dst), Hjj, accumulate=True)
-    H.index_put_((src, dst), Hij, accumulate=True)
-    H.index_put_((dst, src), Hij.transpose(1, 2), accumulate=True)
-    H, b = H.permute(0, 2, 1, 3).reshape(6 * n, 6 * n), _gradient(graph, bi, bj).reshape(6 * n)
+    plan = _plan(graph, dense=True) if plan is None else plan
+    H, b = graph_kernels.assemble_dense(plan, *_edge_blocks(graph, nodes, l))
     if group is None:
         return H, b
     Hb = _psum(torch.cat([H.reshape(-1), b]), group)
     return Hb[:36 * n * n].reshape(6 * n, 6 * n), Hb[36 * n * n:]
 
 
-def _build_tridiag(graph: PoseGraph, nodes, l, group=None):
+def _build_tridiag(graph: PoseGraph, nodes, l, group=None, plan=None):
     """(n, 6, 6) diagonal and super-diagonal Hessian bands and the (n, 6)
-    gradient of a circuit graph (summed over ``group``'s edge shards)."""
+    gradient of a circuit graph (summed over ``group``'s edge shards); only
+    consecutive couplings enter the super-diagonal (the loop edge's coupling
+    to node 0 is removed exactly by the gauge fix).  ``plan``: the graph's
+    ``assembly_plan``, built here if not given."""
     n = graph.nodes.shape[0]
-    src, dst = graph.edge_src, graph.edge_dst
-    Hii, Hjj, Hij, bi, bj = _edge_blocks(graph, nodes, l)
-    diag = graph.nodes.new_zeros((n, 6, 6)).index_add_(0, src, Hii).index_add_(0, dst, Hjj)
-    # only consecutive couplings enter the band; the loop edge's coupling to
-    # node 0 is removed exactly by the gauge fix
-    adj = (dst == src + 1)[:, None, None]
-    off = graph.nodes.new_zeros((n, 6, 6)).index_add_(
-        0, src, torch.where(adj, Hij, torch.zeros_like(Hij)))
+    plan = _plan(graph, dense=False) if plan is None else plan
+    diag, off, b = graph_kernels.assemble_band(plan, *_edge_blocks(graph, nodes, l))
     if group is None:
-        return diag, off, _gradient(graph, bi, bj)
-    flat = _psum(torch.cat([diag.reshape(-1), off.reshape(-1),
-                            _gradient(graph, bi, bj).reshape(-1)]), group)
+        return diag, off, b
+    flat = _psum(torch.cat([diag.reshape(-1), off.reshape(-1), b.reshape(-1)]), group)
     return (flat[:36 * n].reshape(n, 6, 6), flat[36 * n:72 * n].reshape(n, 6, 6),
             flat[72 * n:].reshape(n, 6))
 
 
-def _solve_dense(graph: PoseGraph, nodes, l, lam: float, group=None):
+def _solve_dense(graph: PoseGraph, nodes, l, lam: float, group=None, plan=None):
     """LM step of nodes 1..n-1 (node 0, the reference, is gauge-fixed)."""
     n = graph.nodes.shape[0]
-    H, b = _build_dense(graph, nodes, l, group)
+    H, b = _build_dense(graph, nodes, l, group, plan)
     Hr, br = H[6:, 6:], b[6:]
     Hd = Hr + torch.diag(lam * (torch.diagonal(Hr) + 1e-12))
     # one step of iterative refinement: the gauge-fixed chain Hessian has
@@ -257,10 +222,10 @@ def _solve_dense(graph: PoseGraph, nodes, l, lam: float, group=None):
     return -x.reshape(n - 1, 6)
 
 
-def _solve_tridiag(graph: PoseGraph, nodes, l, lam: float, group=None):
+def _solve_tridiag(graph: PoseGraph, nodes, l, lam: float, group=None, plan=None):
     """LM step of nodes 1..n-1 of a circuit graph by block-Thomas."""
     n = graph.nodes.shape[0]
-    diag, off, b = _build_tridiag(graph, nodes, l, group)
+    diag, off, b = _build_tridiag(graph, nodes, l, group, plan)
     D = diag[1:]                                      # nodes 1..n-1
     D = D + torch.diag_embed(lam * (torch.diagonal(D, dim1=-2, dim2=-1) + 1e-12))
     U = off[1 : n - 1]                                # node j -> j+1, j = 1..n-2
@@ -290,6 +255,8 @@ def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100
     if solver not in ("dense", "tridiag"):
         raise ValueError(f"unknown solver {solver!r}")
     solve = _solve_dense if solver == "dense" else _solve_tridiag
+    # the assembly's summation order depends on the graph alone
+    plan = _plan(graph, dense=solver == "dense")
     f32 = np.float32
     # the line process starts at 1 on every edge (module docstring)
     nodes = graph.nodes
@@ -298,7 +265,8 @@ def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100
     it = 0
     while it < max_iterations:
         # pose update with the line process HELD FIXED...
-        delta = torch.cat([nodes.new_zeros((1, 6)), solve(graph, nodes, l, float(lam), group)])
+        delta = torch.cat([nodes.new_zeros((1, 6)),
+                           solve(graph, nodes, l, float(lam), group, plan)])
         new_nodes = se3.se3_exp(delta) @ nodes
         # ...then its closed-form re-estimate from the NEW residuals: new_l
         # minimises the joint objective given new_nodes, so comparing the

@@ -39,6 +39,10 @@ SIGNATURES = {
     "pcr_fpfh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "pcr_gnc": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
     "pcr_block_thomas": [_P, _P, _P, _I, _P, _P, _P, _P],
+    "pcr_nn1_mutual": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "pcr_edge_blocks": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "pcr_assemble_band": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "pcr_assemble_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     # bytes of shared memory a block of K4, K5, K6 asks for at a band
     "pcr_moments_smem": [_I],
     "pcr_spfh_smem": [_I],

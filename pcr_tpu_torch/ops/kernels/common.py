@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 REAL_D2_MAX = 1.0e10   # any query-candidate pair with d2 above this involves a sentinel
+BIG = 3.0e38           # the d2 of a masked pair (ops/knn)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -54,6 +55,14 @@ def sqdist_tiles(q: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
         diff = q[:, :, None, a] - slab[:, None, :, a]
         d = diff * diff if d is None else d + diff * diff
     return d
+
+
+def chunk_sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """(Tq, D) x (C, D) -> (Tq, C) squared distances by the expanded
+    formula, one matmul: max((|q|^2 + |r|^2) - 2 q.r, 0)."""
+    qn = torch.sum(q * q, dim=-1, keepdim=True)
+    rn = torch.sum(r * r, dim=-1)
+    return torch.clamp(qn + rn[None, :] - 2.0 * (q @ r.T), min=0.0)
 
 
 def tile_groups(n_tiles: int, tile_elems: int, budget: int = 1 << 22) -> list[slice]:

@@ -1,5 +1,6 @@
-"""K1 — banded 1-NN — and K7 — brute-force 1-NN (CUDA sources:
-``pcr_tpu_torch/csrc/band_nn.cu`` and ``pcr_tpu_torch/csrc/nn1.cu``).
+"""K1 — banded 1-NN —, K7 — brute-force 1-NN — and K11 — mutual 1-NN in
+feature space (CUDA sources: ``pcr_tpu_torch/csrc/band_nn.cu``,
+``pcr_tpu_torch/csrc/nn1.cu`` and ``pcr_tpu_torch/csrc/mutual_nn.cu``).
 
 K1 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_band_pallas``.  Each tile
 of ``q_tile`` sorted queries scans one contiguous slab of ``2*band`` sorted
@@ -29,15 +30,30 @@ would leave most SMs idle), staged through double-buffered shared memory, and
 the partial minima merge in a second small kernel.  Unlike the TPU kernels
 both compute d2 directly as (q - r)^2, so no re-score is needed for
 precision.
+
+K11 is not a Pallas kernel: it replaces the ``jax.lax.scan`` of
+``pcr_tpu/ops/knn.py:nn1_mutual`` (FGR's mutual matching in 33-dim FPFH
+space), which XLA compiles into one program.  Both directions come from one
+sweep: for every (a-row, b-row) pair the expanded d2 of ``_chunk_sqdist``,
+max((|a|^2 + |b|^2) - 2 a.b, 0), BIG where either row is masked, and for
+each row and each column the smallest index among its minimal d2.  Each
+thread keeps an 8 x 8 tile of 33-term dot products in registers (no
+distance reaches memory); partial minima merge as uint64 keys (d2's bits
+above the index) with an integer atomicMin, so the result does not depend
+on the order of the blocks.  Its dot products are summed in another order
+than the plain version's cuBLAS product, so on near-ties the two may pick
+different rows, within the expanded form's rounding; on exact ties they
+pick the same.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils.cloud import pad_rows
 from . import build, common
 
-LAUNCHES = {"nn1_band": 0, "nn1": 0}
+LAUNCHES = {"nn1_band": 0, "nn1": 0, "nn1_mutual": 0}
 # K7's geometry (csrc/nn1.cu's kThreads, kQueries, kGroup, kMinBlocks: its
 # launch bounds hold the partial kernel to 64 registers, so 8 blocks fit an
 # SM), the waves of resident blocks it fills and the fewest rows of a ref
@@ -48,6 +64,7 @@ NN1_GROUP = 8
 NN1_BLOCKS_PER_SM = 8
 NN1_WAVES = 1
 NN1_MIN_SPLIT_ROWS = 256
+MUTUAL_DIM = 33        # K11's feature width (csrc/mutual_nn.cu's kDim): FPFH
 
 
 def nn1_band_reference(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
@@ -153,3 +170,66 @@ def nn1(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     build.check_launch("nn1", err)
     LAUNCHES["nn1"] += 1
     return out_d, out_row
+
+
+def nn1_mutual_reference(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor,
+                         b_mask: torch.Tensor, *, q_tile: int = 2048):
+    """Plain PyTorch version of K11: one sweep over the (q_tile, Nb)
+    distance tiles, each giving its rows' argmin (a->b) and updating a
+    carried column minimum (b->a).
+
+    Ties: the first index inside a tile, and a later tile replaces the
+    carried column minimum only when strictly smaller.  Returns (ij (Na,),
+    ji (Nb,)) int64; rows with no valid partner get index 0.
+    """
+    na, nb = a.shape[0], b.shape[0]
+    na_pad = -(-na // q_tile) * q_tile
+    ap = pad_rows(a, na_pad, 0.0)
+    amask = pad_rows(a_mask, na_pad, False)
+    col_d = torch.full((nb,), common.BIG, dtype=torch.float32, device=a.device)
+    col_i = torch.zeros(nb, dtype=torch.int64, device=a.device)
+    rows = []
+    for t0 in range(0, na_pad, q_tile):
+        d2 = common.chunk_sqdist(ap[t0:t0 + q_tile], b)
+        d2 = torch.where(amask[t0:t0 + q_tile, None] & b_mask[None, :], d2, common.BIG)
+        rows.append(torch.argmin(d2, dim=1))
+        cmin, carg = torch.min(d2, dim=0)
+        take = cmin < col_d
+        col_d = torch.where(take, cmin, col_d)
+        col_i = torch.where(take, carg + t0, col_i)
+    return torch.cat(rows)[:na], col_i
+
+
+def nn1_mutual(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor, b_mask: torch.Tensor,
+               *, q_tile: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mutual nearest neighbours of a (na, D) and b (nb, D) f32 rows with
+    bool masks: (ij (na,), ji (nb,)), the smallest index among the minimal
+    expanded d2 of each row and of each column, 0 for a row with no valid
+    partner.  CPU tensors run the plain version (over ``q_tile``-row tiles;
+    int64 indices); CUDA tensors launch the kernel (int32 indices), which
+    takes D = 33, the FPFH width."""
+    na, nb = a.shape[0], b.shape[0]
+    if na < 1 or nb < 1:
+        raise ValueError(f"nn1_mutual needs rows on both sides, got {na} and {nb}")
+    if not common.on_cuda(a, a_mask, b, b_mask):
+        return nn1_mutual_reference(a, a_mask, b, b_mask, q_tile=q_tile)
+    common.check(a, "a", torch.float32, (na, MUTUAL_DIM))
+    common.check(b, "b", torch.float32, (nb, MUTUAL_DIM))
+    common.check(a_mask, "a_mask", torch.bool, (na,))
+    common.check(b_mask, "b_mask", torch.bool, (nb,))
+    # the squared norms as the plain version computes them
+    an = torch.sum(a * a, dim=-1)
+    bn = torch.sum(b * b, dim=-1)
+    row_key = torch.empty(na, dtype=torch.int64, device=a.device)
+    col_key = torch.empty(nb, dtype=torch.int64, device=a.device)
+    ij = torch.empty(na, dtype=torch.int32, device=a.device)
+    ji = torch.empty(nb, dtype=torch.int32, device=a.device)
+    lib = build.library()
+    with torch.cuda.device(a.device):
+        err = lib.pcr_nn1_mutual(a.data_ptr(), an.data_ptr(), a_mask.data_ptr(), na,
+                                 b.data_ptr(), bn.data_ptr(), b_mask.data_ptr(), nb,
+                                 row_key.data_ptr(), col_key.data_ptr(), ij.data_ptr(),
+                                 ji.data_ptr(), common.stream_of(a))
+    build.check_launch("nn1_mutual", err)
+    LAUNCHES["nn1_mutual"] += 1
+    return ij, ji

@@ -10,6 +10,8 @@ LiDAR coordinates TF32 would reorder the selection, and FPFH values reach
 
 The 1-NN ``nn1`` launches kernel K7 (``ops/kernels/nn_kernels.nn1``) on the
 card: it scores the whole ref with the exact formula and needs no re-score.
+FGR's mutual matching ``nn1_mutual`` launches kernel K11
+(``nn_kernels.nn1_mutual``), which keeps the expanded formula.
 ``knn_approx`` keeps pcr_tpu's interface, but ``approx_min_k`` has no CUDA
 form, so its selection is the exact one.
 """
@@ -20,9 +22,10 @@ import numpy as np
 import torch
 
 from .kernels import nn_kernels
+from .kernels.common import BIG
+from .kernels.common import chunk_sqdist as _chunk_sqdist
 from ..utils.cloud import PAD_COORD, pad_rows
 
-BIG = 3.0e38
 # Any exact squared distance above this is a sentinel (PAD_COORD) hit: real
 # LiDAR scenes are < ~2 km across (d^2 < 4e6) while sentinel pairs are ~1e12.
 SENTINEL_D2 = 1.0e10
@@ -31,13 +34,6 @@ def sq_f32(x: float) -> float:
     """x*x as float32 arithmetic rounds it (pcr_tpu squares its f32 radii on
     the device); a host float, so comparing with it needs no device sync."""
     return float(np.float32(x) * np.float32(x))
-
-
-def _chunk_sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """(Tq, D) x (C, D) -> (Tq, C) squared distances via one matmul."""
-    qn = torch.sum(q * q, dim=-1, keepdim=True)
-    rn = torch.sum(r * r, dim=-1)
-    return torch.clamp(qn + rn[None, :] - 2.0 * (q @ r.T), min=0.0)
 
 
 def exact_sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -204,31 +200,20 @@ def nn1_exact(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, *,
 
 def nn1_mutual(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor,
                b_mask: torch.Tensor, *, q_tile: int = 2048):
-    """a->b and b->a exact nearest-neighbour indices from ONE sweep over the
-    (q_tile, Nb) distance tiles: each tile gives its rows' argmin (a->b) and
-    updates a carried column minimum (b->a).
+    """a->b and b->a exact nearest-neighbour indices in one sweep over the
+    (Na, Nb) distances (FGR's mutual matching): kernel K11
+    (``ops/kernels/nn_kernels.nn1_mutual``) on CUDA tensors, its plain
+    version, a loop over (q_tile, Nb) tiles, on CPU ones.
 
-    Ties: the first index inside a tile, and a later tile replaces the
-    carried column minimum only when strictly smaller.  Returns (ij (Na,),
-    ji (Nb,)) int64; rows with no valid partner get index 0 — callers gate on
-    their own masks.
+    d2 is the expanded formula; ties go to the smallest index among the
+    equal minimal d2.  Returns (ij (Na,), ji (Nb,)) int64; rows with no
+    valid partner get index 0 — callers gate on their own masks.
+    ``q_tile`` sets the plain version's tiles (the kernel's are its own);
+    the kernel takes 33-dim rows (FPFH) and refuses others.
     """
-    na, nb = a.shape[0], b.shape[0]
-    na_pad = -(-na // q_tile) * q_tile
-    ap = pad_rows(a, na_pad, 0.0)
-    amask = pad_rows(a_mask, na_pad, False)
-    col_d = torch.full((nb,), BIG, dtype=torch.float32, device=a.device)
-    col_i = torch.zeros(nb, dtype=torch.int64, device=a.device)
-    rows = []
-    for t0 in range(0, na_pad, q_tile):
-        d2 = _chunk_sqdist(ap[t0:t0 + q_tile], b)
-        d2 = torch.where(amask[t0:t0 + q_tile, None] & b_mask[None, :], d2, BIG)
-        rows.append(torch.argmin(d2, dim=1))
-        cmin, carg = torch.min(d2, dim=0)
-        take = cmin < col_d
-        col_d = torch.where(take, cmin, col_d)
-        col_i = torch.where(take, carg + t0, col_i)
-    return torch.cat(rows)[:na], col_i
+    ij, ji = nn_kernels.nn1_mutual(a.contiguous(), a_mask.contiguous(), b.contiguous(),
+                                   b_mask.contiguous(), q_tile=q_tile)
+    return ij.long(), ji.long()
 
 
 def hybrid(query, ref, ref_mask, k: int, radius: float, **kw):

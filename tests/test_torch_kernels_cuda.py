@@ -1,5 +1,5 @@
-"""Kernels K1-K9 on the card against their plain PyTorch versions on the
-same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
+"""Kernels K1-K9, K11 and K12 on the card against their plain PyTorch
+versions on the same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
@@ -13,7 +13,8 @@ import chip_smoke
 from pcr_tpu_torch.models import fgr
 from pcr_tpu_torch.models.global_refine import pose_graph
 from pcr_tpu_torch.ops import knn, preprocess
-from pcr_tpu_torch.ops.kernels import feature_kernels, loop_kernels, nn_kernels
+from pcr_tpu_torch.ops.kernels import (feature_kernels, graph_kernels, loop_kernels,
+                                       nn_kernels)
 from pcr_tpu_torch.utils import cloud
 from pcr_tpu_torch.utils.cloud import pad_rows
 
@@ -430,3 +431,105 @@ def test_loop_kernels_never_fall_back(cuda_rng, monkeypatch):
     with pytest.raises(TypeError):
         loop_kernels.gnc(*(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
                            for x in (*_gnc_case(cuda_rng, 64, 1, 0.5, False), 300, 1.4, True)))
+
+
+def _fpfh_like(rng, n: int, masked: float):
+    """n FPFH-like rows on the card: three 11-bin histograms of 100 each
+    (nonnegative, features up to ~100 as stage 1's), a share masked."""
+    dev = torch.device("cuda")
+    f = np.concatenate([rng.dirichlet(np.full(11, 0.4), size=n) * 100 for _ in range(3)], axis=1)
+    mask = rng.random(n) >= masked
+    return (torch.as_tensor(f.astype(np.float32), device=dev), torch.as_tensor(mask, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb", [(37, 5), (300, 517), (2049, 130), (4099, 2000),
+                                   (24576, 24576)])
+def test_nn1_mutual_kernel_on_exact_ties(cuda_rng, na, nb):
+    """K11 on chip_smoke.k11_tie_inputs (integer features: every d2 exact,
+    ties everywhere, duplicated rows across the kernel's and the plain
+    version's tile boundaries, masked runs, zero rows, unreachable
+    columns): ij and ji equal to the plain version's."""
+    chip_smoke.check_k11_ties(na, nb, torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb", [(24576, 24576), (1000, 3001)])
+def test_nn1_mutual_kernel_within_rounding(cuda_rng, na, nb):
+    """K11 on FPFH-like features: one launch a call, two runs bit for bit,
+    and every pick that differs from the plain version's within the
+    expanded form's rounding (chip_smoke.mutual_rounding)."""
+    a, am = _fpfh_like(cuda_rng, na, 0.1)
+    b, bm = _fpfh_like(cuda_rng, nb, 0.1)
+    before = nn_kernels.LAUNCHES["nn1_mutual"]
+    ij, ji = nn_kernels.nn1_mutual(a, am, b, bm)
+    ij2, ji2 = nn_kernels.nn1_mutual(a, am, b, bm)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["nn1_mutual"] == before + 2
+    assert torch.equal(ij, ij2) and torch.equal(ji, ji2)
+    ij_p, ji_p = nn_kernels.nn1_mutual_reference(a, am, b, bm)
+    rows, worst_r = chip_smoke.mutual_rounding(a, am, b, bm, ij, ij_p)
+    cols, worst_c = chip_smoke.mutual_rounding(b, bm, a, am, ji, ji_p)
+    assert worst_r <= 1.0 and worst_c <= 1.0, (rows, worst_r, cols, worst_c)
+    assert rows < na // 100 and cols < nb // 100
+
+
+def _edge_args(graph, l):
+    return (graph.nodes, graph.edge_src, graph.edge_dst, graph.edge_T, graph.edge_info,
+            l * graph.edge_mask.to(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nclt_901", "k2", "k4"])
+def test_edge_blocks_kernel_matches_plain(cuda_rng, case):
+    """K12 (chip_smoke.check_k12): the blocks within their bound of the plain
+    version's, twice bit for bit; the bands (the NCLT circuit) or the dense
+    system (k-graphs) of the kernel's blocks bit-equal to the CPU's
+    index_add_ / index_put_ of the same blocks."""
+    dev = torch.device("cuda")
+    if case == "nclt_901":
+        rel = np.load(chip_smoke.ROOT / "outputs" / "NCLT_poses.npz")["relative_FGR_GICP"]
+        graph = chip_smoke.nclt_graph(rel, dev, np.diag([2e6, 2e6, 2e6, 2e4, 2e4, 2e4])
+                                      .astype(np.float32))
+    else:
+        graph = chip_smoke.k_graph(16, int(case[1]), dev)
+    l = torch.linspace(0.3, 1.0, graph.edge_src.shape[0], device=dev)
+    chip_smoke.check_k12(case, _edge_args(graph, l), library=False)
+
+
+@pytest.mark.cuda
+def test_mutual_and_edge_kernels_never_fall_back(cuda_rng, monkeypatch):
+    """With every plain version of K11 and K12 made to raise, FGR's
+    matching and both pose-graph solvers still run on CUDA tensors, K11
+    once a match, K12's two launches once an LM iteration; float64 inputs
+    raise."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for module, name in ((nn_kernels, "nn1_mutual_reference"),
+                         (graph_kernels, "edge_blocks_reference"),
+                         (graph_kernels, "assemble_band_reference"),
+                         (graph_kernels, "assemble_dense_reference")):
+        monkeypatch.setattr(module, name, refuse)
+    dev = torch.device("cuda")
+    a, am = _fpfh_like(cuda_rng, 500, 0.1)
+    before = nn_kernels.LAUNCHES["nn1_mutual"]
+    ci, cj, cm = fgr.match_features(a, am, a, am)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["nn1_mutual"] == before + 1
+    assert bool((cj[cm] == ci[cm]).all()) and int(cm.sum()) == int(am.sum())
+    rel = np.load(chip_smoke.ROOT / "outputs" / "NCLT_poses.npz")["relative_FGR_GICP"][:12]
+    for graph, solver in ((chip_smoke.nclt_graph(rel, dev, np.eye(6, dtype=np.float32)),
+                           "tridiag"), (chip_smoke.k_graph(9, 2, dev), "dense")):
+        before = dict(graph_kernels.LAUNCHES)
+        res = pose_graph.optimize_pose_graph_once(graph, mu=1.0, max_iterations=4, solver=solver)
+        torch.cuda.synchronize()
+        for name in ("edge_blocks", "edge_assembly"):
+            assert graph_kernels.LAUNCHES[name] == before[name] + res.iterations_used
+        assert torch.isfinite(res.nodes).all()
+    with pytest.raises(TypeError):
+        nn_kernels.nn1_mutual(a.double(), am, a.double(), am)
+    graph = chip_smoke.k_graph(5, 1, dev)
+    args = _edge_args(graph, torch.ones(5, device=dev))
+    with pytest.raises(TypeError):
+        graph_kernels.edge_blocks(*(x.double() if x.is_floating_point() else x for x in args))
