@@ -57,6 +57,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="shard pairs over N devices (N ranks)")
         sp.add_argument("--shard-points", type=int, default=None,
                         help="shard each pair's source rows over N devices")
+        sp.add_argument("--trace", default=None, metavar="FILE",
+                        help="record the port's spans and counters (utils/trace) and "
+                             "write them to FILE as Chrome trace-event JSON")
         return sp
 
     add_common(sub.add_parser("stage1", help="FGR coarse pairwise registration"))
@@ -120,8 +123,26 @@ def main(argv=None, device=None) -> int:
     """Run one command.  ``device`` is where every scan the command loads is
     placed (default: the CUDA card; without one pass "cpu"), and the
     backend of a mesh's process group when this call starts it (NCCL on
-    the card, gloo on the CPU)."""
+    the card, gloo on the CPU).  With ``--trace FILE`` the port's tracer is
+    on for the command and rank 0 writes what it recorded to FILE."""
     args = _build_parser().parse_args(argv)
+    if not args.trace:
+        return _run(args, device)
+    from .parallel import mesh as mesh_mod
+    from .utils import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        code = _run(args, device)
+    finally:
+        trace.disable()
+    if mesh_mod.rank() == 0:
+        trace.write_chrome(trace.snapshot(), args.trace)
+    return code
+
+
+def _run(args, device) -> int:
     cfg = _config(args)
 
     from . import pipeline

@@ -36,7 +36,7 @@ from ..ops import fpfh as fpfh_ops
 from ..ops import knn as knn_ops
 from ..ops import normals as normals_ops
 from ..ops.kernels import loop_kernels
-from ..utils import se3
+from ..utils import se3, trace
 from ..utils.cloud import Cloud, stack_clouds
 from . import evaluate as eval_mod
 from .gicp import RegistrationResult
@@ -198,6 +198,7 @@ def _correspondences(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: Fgr
     return corr_i, corr_j, corr_mask
 
 
+@trace.spanned("fgr")
 def registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt, opts: FgrOptions,
                      seed: int = 0, n_trials: int = 16384,
                      max_tuples: int | None = None,
@@ -221,13 +222,16 @@ def fgr_features(c: Cloud, voxel_size: float) -> tuple[Cloud, torch.Tensor]:
     Hybrid(10v, 200) FPFH over ONE k=200 self-excluded kNN selection (its
     first 19 columns plus the query itself are the normal neighbourhood).
     Returns (the cloud with normals and covariances, its (N, 33) FPFH)."""
-    d2, idx = knn_ops.knn(c.points, c.points, c.mask, 200, exclude_self=True)
-    normals, cov = normals_ops.estimate_normals_hybrid_from_knn(
-        c.points, c.mask, d2, idx, 2 * voxel_size, 20)
-    feat = fpfh_ops.fpfh(c.points, normals, c.mask, 10 * voxel_size, 200, knn_result=(d2, idx))
+    with trace.span("features", kind="selection", rows=c.capacity):
+        d2, idx = knn_ops.knn(c.points, c.points, c.mask, 200, exclude_self=True)
+        normals, cov = normals_ops.estimate_normals_hybrid_from_knn(
+            c.points, c.mask, d2, idx, 2 * voxel_size, 20)
+        feat = fpfh_ops.fpfh(c.points, normals, c.mask, 10 * voxel_size, 200,
+                             knn_result=(d2, idx))
     return Cloud(points=c.points, mask=c.mask, normals=normals, covariances=cov), feat
 
 
+@trace.spanned("fgr")
 def batched_registration_fgr(source: Cloud, target: Cloud, feat_src, feat_tgt,
                              opts: FgrOptions, seeds, n_trials: int = 16384,
                              max_tuples=None, u: torch.Tensor | None = None

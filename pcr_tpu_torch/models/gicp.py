@@ -37,7 +37,7 @@ import torch
 from ..ops import band_nn, eigen3, grid_nn
 from ..ops import knn as knn_ops
 from ..utils import collectives
-from ..utils import se3
+from ..utils import se3, trace
 from ..utils.cloud import Cloud, pad_rows
 from ..utils.linalg import solve6_cholesky
 
@@ -154,6 +154,11 @@ def _band_width(nr0: int, cap: int) -> int:
     return min(cap, max(512, -(-(nr0 // 8) // 256) * 256))
 
 
+def iteration_band(nr0: int) -> int:
+    """The band of the band loop's iterations for a target of ``nr0`` rows."""
+    return _band_width(nr0, 1024)
+
+
 def _correspond(src_pts, src_mask, tgt_pts, tgt_mask, T, max_dist: float, accel=None):
     """Correspondences at pose T: (moved source p, target index j, valid,
     exact d2).  ``accel`` None runs the brute-force ``knn.nn1`` (kernel K7
@@ -255,8 +260,11 @@ def _gicp_nn1(source: Cloud, target: Cloud, max_dist: float, T0: torch.Tensor, l
         done = (((fit - fit_prev).abs() < relative_fitness)
                 & ((rmse - rmse_prev).abs() < relative_rmse)) | (n_corr == 0)
         fit_prev, rmse_prev = fit, rmse
-        if bool(done):
+        with trace.span("sync", site="gicp"):
+            stop = bool(done)
+        if stop:
             break
+    trace.count("gicp.iterations", iters)
     _, _, valid, d2 = _correspond(source.points, source.mask, target.points, target.mask,
                                   T, max_dist, accel)
     fitness, rmse, n_corr = _metrics(valid, d2, source.mask, group)
@@ -295,7 +303,7 @@ def _gicp_band_sorted(
     # band capped at 1024 for the iterations: the per-iteration sweep cost is
     # nq_pad x 2*band, and nr/8 rows either side already covers ~extent/4
     nr0 = target.points.shape[0]
-    band = _band_width(nr0, 1024)
+    band = iteration_band(nr0)
     p0 = se3.transform_points(T0, source.points)
     index = band_nn.build_band_index(p0, source.mask, target.points, target.mask,
                                      band=band)
@@ -367,8 +375,11 @@ def _gicp_band_sorted(
         done = (((fit - fit_prev).abs() < relative_fitness)
                 & ((rmse - rmse_prev).abs() < relative_rmse)) | (n_corr == 0)
         fit_prev, rmse_prev = fit, rmse
-        if bool(done):
+        with trace.span("sync", site="gicp"):
+            stop = bool(done)
+        if stop:
             break
+    trace.count("gicp.iterations", iters)
 
     # FINAL metrics over the un-capped band (the 1024 cap can truncate
     # in-radius correspondences at high density while the pose is unchanged);

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ...utils import quaternion as quat
-from ...utils import se3
+from ...utils import se3, trace
 
 
 _host, _cat = se3._host, se3._cat
@@ -91,6 +91,7 @@ def _rotated_translations(R, T_rel):
     return einsum("nij,nj->ni", R[: T_rel.shape[0]], se3.trans(T_rel))
 
 
+@trace.spanned("stage3.slerp")
 def refine_slerp(T_rel):
     """The reference's ``reconstruir_Ts_para_origem_SLERP``: adjust rotations
     by circuit SLERP, then chain the raw translations with the adjusted
@@ -168,6 +169,7 @@ def lum_posterior_variance(T_rel, X, R_abs, weights=None) -> float:
     return float((w * (V * V).sum(-1)).sum() / 3.0)
 
 
+@trace.spanned("stage3.lum")
 def refine_lum(T_rel, weights=None, return_sigma0: bool = False):
     """The reference's ``reconstruir_Ts_para_origem_LUM`` (and its weighted
     variant): rotations by the plain reversed-order forward chain,
@@ -181,6 +183,7 @@ def refine_lum(T_rel, weights=None, return_sigma0: bool = False):
     return poses
 
 
+@trace.spanned("stage3.slerp_lum")
 def refine_slerp_lum(T_rel, weights=None):
     """The reference's ``reconstruir_Ts_para_origem_SLERP_LUM``: the
     SLERP-adjusted rotations rotate the LUM observations.  Returns (n, 4, 4)."""

@@ -66,7 +66,7 @@ import torch
 
 from ...ops.kernels import graph_kernels, loop_kernels
 from ...utils import collectives
-from ...utils import se3
+from ...utils import se3, trace
 from ...utils.cloud import _placement
 
 
@@ -261,18 +261,23 @@ def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100
     # the line process starts at 1 on every edge (module docstring)
     nodes = graph.nodes
     l = torch.ones_like(graph.edge_mask, dtype=torch.float32)
-    lam, cost = f32(1e-6), f32(_total_cost(graph, nodes, l, mu, group).item())
+    cost = _total_cost(graph, nodes, l, mu, group)
+    with trace.span("sync", site="lm.cost"):
+        lam, cost = f32(1e-6), f32(cost.item())
     it = 0
     while it < max_iterations:
-        # pose update with the line process HELD FIXED...
-        delta = torch.cat([nodes.new_zeros((1, 6)),
-                           solve(graph, nodes, l, float(lam), group, plan)])
-        new_nodes = se3.se3_exp(delta) @ nodes
-        # ...then its closed-form re-estimate from the NEW residuals: new_l
-        # minimises the joint objective given new_nodes, so comparing the
-        # joint costs is a valid descent test
-        new_l = _line_process_update(graph, new_nodes, mu)
-        new_cost = f32(_total_cost(graph, new_nodes, new_l, mu, group).item())
+        with trace.span("lm.iteration"):
+            # pose update with the line process HELD FIXED...
+            delta = torch.cat([nodes.new_zeros((1, 6)),
+                               solve(graph, nodes, l, float(lam), group, plan)])
+            new_nodes = se3.se3_exp(delta) @ nodes
+            # ...then its closed-form re-estimate from the NEW residuals: new_l
+            # minimises the joint objective given new_nodes, so comparing the
+            # joint costs is a valid descent test
+            new_l = _line_process_update(graph, new_nodes, mu)
+            new_cost = _total_cost(graph, new_nodes, new_l, mu, group)
+            with trace.span("sync", site="lm.cost"):
+                new_cost = f32(new_cost.item())
         it += 1
         improved = new_cost < cost
         converged = improved and (cost - new_cost) < f32(rel_tol) * (cost + f32(1e-12))
@@ -281,6 +286,7 @@ def optimize_pose_graph_once(graph: PoseGraph, mu=1.0, max_iterations: int = 100
         lam = np.clip(lam * f32(0.5 if improved else 4.0), f32(1e-12), f32(1e8))
         if converged or lam >= f32(1e8):
             break
+    trace.count("lm.iterations", it)
     return LMResult(nodes, float(cost), it, l)
 
 
@@ -321,6 +327,7 @@ def chain_nodes_from_edges(graph: PoseGraph) -> torch.Tensor:
     return torch.stack(out)
 
 
+@trace.spanned("pose_graph")
 def global_optimization(graph: PoseGraph, max_correspondence_distance: float = 0.2,
                         edge_prune_threshold: float = 0.25,
                         preference_loop_closure: float = 1.0, max_iterations: int = 100,

@@ -24,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.cloud import Cloud, stack_clouds
 from . import evaluate as eval_mod
 from . import fgr as fgr_mod
@@ -57,9 +58,11 @@ def coarse_to_fine(source: Cloud, target: Cloud, voxel_size: float, seed: int = 
         res = ms_mod.multiscale_gicp(source, target, res_fgr.transformation,
                                      n_scales=n_scales, iterations=iterations,
                                      schedule="doubling")
-        fit, _, _ = eval_mod.evaluate_registration(source, target, 2 * voxel_size,
-                                                   res.transformation)
-        return res, float(fit)
+        with trace.span("gate"):
+            fit, _, _ = eval_mod.evaluate_registration(source, target, 2 * voxel_size,
+                                                       res.transformation)
+        with trace.span("sync", site="gate"):
+            return res, float(fit)
 
     res, gate_fit = attempt(1.0, seed)
     if retry and gate_fit <= fitness_gate:
@@ -127,8 +130,9 @@ def full_registration(clouds: list[Cloud], voxel_size: float, k: int,
         res, info, fit = coarse_to_fine(clouds[s], clouds[t], voxel_size, seed=s * n + t,
                                         n_scales=n_scales, iterations=iterations,
                                         fitness_gate=fitness_gate, uniforms=uniforms)
-        T_all.append(_pose(res.transformation))
-        infos.append(_pose(info))
+        with trace.span("sync", site="information"):
+            T_all.append(_pose(res.transformation))
+            infos.append(_pose(info))
         gates.append(fit)
     graph, ok = _graph(pairs, T_all, infos, gates, fitness_gate, log, clouds[0].device)
     if log:
@@ -136,6 +140,7 @@ def full_registration(clouds: list[Cloud], voxel_size: float, k: int,
     return graph
 
 
+@trace.spanned("graph_builder")
 def full_registration_batched(clouds: list[Cloud], voxel_size: float, k: int,
                               fitness_gate: float = 0.40, log=print,
                               n_scales: int = 3, iterations: int = 100,
@@ -187,9 +192,11 @@ def full_registration_batched(clouds: list[Cloud], voxel_size: float, k: int,
         res = pair_sharding.batched_mgicp(src_raw, tgt_raw, res_fgr.transformation,
                                           n_scales=n_scales, iterations=iterations,
                                           schedule="doubling")
-        fit, _, _ = eval_mod.evaluate_registration_batch(src_raw, tgt_raw, 2 * voxel_size,
-                                                         res.transformation)
-        T_np, fit_np = _pose(res.transformation), fit.cpu().numpy()
+        with trace.span("gate"):
+            fit, _, _ = eval_mod.evaluate_registration_batch(src_raw, tgt_raw, 2 * voxel_size,
+                                                             res.transformation)
+        with trace.span("sync", site="gate"):
+            T_np, fit_np = _pose(res.transformation), fit.cpu().numpy()
         T_all[start:start + len(chunk)] = T_np[:len(chunk)]
         gate_all[start:start + len(chunk)] = fit_np[:len(chunk)]
 
@@ -201,7 +208,8 @@ def full_registration_batched(clouds: list[Cloud], voxel_size: float, k: int,
             res, info, fit = coarse_to_fine(clouds[s], clouds[t], voxel_size, seed=s * n + t,
                                             n_scales=n_scales, iterations=iterations,
                                             fitness_gate=fitness_gate, uniforms=uniforms)
-            T_all[e], infos[e], gate_all[e] = _pose(res.transformation), _pose(info), fit
+            with trace.span("sync", site="information"):
+                T_all[e], infos[e], gate_all[e] = _pose(res.transformation), _pose(info), fit
             retried += 1
     # batched information matrices for the pairs not retried
     todo = [e for e in range(E) if not infos[e].any()]
@@ -212,7 +220,8 @@ def full_registration_batched(clouds: list[Cloud], voxel_size: float, k: int,
             stack_clouds([clouds[pairs[e][0]] for e in pad_idx]),
             stack_clouds([clouds[pairs[e][1]] for e in pad_idx]), voxel_size,
             torch.as_tensor(T_all[pad_idx], dtype=torch.float32, device=clouds[0].device))
-        infos[idx] = _pose(I)[:len(idx)]
+        with trace.span("sync", site="information"):
+            infos[idx] = _pose(I)[:len(idx)]
     graph, ok = _graph(pairs, T_all, infos, gate_all, fitness_gate, log, clouds[0].device)
     if log:
         log(f"{ok}/{E} successful registrations (gate {fitness_gate}, "

@@ -20,6 +20,7 @@ from ..ops import normals as normals_ops
 from ..ops import outlier as outlier_ops
 from ..ops import preprocess as preprocess_ops
 from ..ops import voxel as voxel_ops
+from ..utils import trace
 from ..utils.cloud import Cloud, compact
 from . import gicp as gicp_mod
 
@@ -72,6 +73,7 @@ def _preprocess_scale(c: Cloud, voxel_size: float, scale_capacity: int | None,
     return normals_ops.with_normals_knn(d, normal_k)
 
 
+@trace.spanned("pyramid")
 def build_pyramid(c: Cloud, n_scales: int = 5,
                   scale_capacities: tuple[int, ...] | None = None,
                   fused: bool = True) -> tuple[Cloud, ...]:
@@ -90,9 +92,13 @@ def _run_scales(pairs, dists, T_init, iterations: int, loss: str):
     finest result with every scale's iteration count attached."""
     T = torch.as_tensor(T_init, dtype=torch.float32, device=pairs[0][0].device)
     result, its = None, []
-    for (src, tgt), dist in zip(pairs, dists):
-        result = gicp_mod.registration_gicp(src, tgt, dist, T, loss=loss,
-                                            max_iteration=iterations)
+    for i, ((src, tgt), dist) in enumerate(zip(pairs, dists)):
+        its0 = trace.counter("gicp.iterations")
+        with trace.span("gicp.scale", scale=i, rows=src.capacity,
+                        band=gicp_mod.iteration_band(tgt.capacity)):
+            result = gicp_mod.registration_gicp(src, tgt, dist, T, loss=loss,
+                                                max_iteration=iterations)
+        trace.count(f"gicp.iterations.s{i}", trace.counter("gicp.iterations") - its0)
         its.append(result.iterations)
         T = result.transformation
     return result._replace(scale_iterations=torch.stack(its))

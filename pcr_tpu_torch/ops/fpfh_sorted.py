@@ -27,6 +27,7 @@ import torch
 from . import preprocess
 from .kernels import common
 from .kernels import feature_kernels as fk
+from ..utils import trace
 from ..utils.cloud import Cloud, PAD_COORD, pad_rows, stack_clouds
 
 N_BINS = fk.N_BINS
@@ -64,37 +65,38 @@ def fgr_features_sorted(c: Cloud, voxel_size: float, q_tile: int = 512, band: in
     ``normals_in``: optional (N, 3) normals in INPUT order, which skip the
     banded estimation (for oracle tests that need known normals).
     """
-    points, mask = c.points, c.mask
-    n = points.shape[0]
-    v = float(np.float32(voxel_size))
-    ps, ms, p_q, p_r, starts_el = preprocess.sort_and_tile(points, mask, q_tile, band)
-    n_pad, nr_pad = p_q.shape[0], p_r.shape[0]
-    prove_slab_placement(preprocess.centred_slab_starts(n_pad // q_tile, q_tile, band, nr_pad),
-                         n_pad, q_tile, band)
+    with trace.span("features", kind="banded", rows=c.capacity):
+        points, mask = c.points, c.mask
+        n = points.shape[0]
+        v = float(np.float32(voxel_size))
+        ps, ms, p_q, p_r, starts_el = preprocess.sort_and_tile(points, mask, q_tile, band)
+        n_pad, nr_pad = p_q.shape[0], p_r.shape[0]
+        prove_slab_placement(preprocess.centred_slab_starts(n_pad // q_tile, q_tile, band, nr_pad),
+                             n_pad, q_tile, band)
 
-    # --- pass 1 — normals: Hybrid(2v, normal_k incl. self) moments ----------
-    if normals_in is not None:
-        normals = normals_in[preprocess.sweep_order(points, mask)]
-        cov = torch.zeros((n, 3, 3), dtype=torch.float32, device=points.device)
-    else:
-        center = fk.slab_centroids(starts_el, p_r, band)
-        S = fk.moments(starts_el, p_q, p_r, center, v, q_tile=q_tile, band=band,
-                       normal_k=normal_k)[:n]
-        normals, cov = preprocess.normals_from_moments(S, ms)
+        # --- pass 1 — normals: Hybrid(2v, normal_k incl. self) moments ----------
+        if normals_in is not None:
+            normals = normals_in[preprocess.sweep_order(points, mask)]
+            cov = torch.zeros((n, 3, 3), dtype=torch.float32, device=points.device)
+        else:
+            center = fk.slab_centroids(starts_el, p_r, band)
+            S = fk.moments(starts_el, p_q, p_r, center, v, q_tile=q_tile, band=band,
+                           normal_k=normal_k)[:n]
+            normals, cov = preprocess.normals_from_moments(S, ms)
 
-    # --- pass 2 — SPFH: Hybrid(10v, max_nn excl. self) ------------------------
-    spfh_p, tau = fk.spfh(starts_el, p_q, pad_rows(normals, n_pad, 0.0).contiguous(),
-                          p_r, pad_rows(normals, nr_pad, 0.0).contiguous(), v,
-                          q_tile=q_tile, band=band, max_nn=max_nn)
-    spfh = spfh_p[:n]
+        # --- pass 2 — SPFH: Hybrid(10v, max_nn excl. self) ------------------------
+        spfh_p, tau = fk.spfh(starts_el, p_q, pad_rows(normals, n_pad, 0.0).contiguous(),
+                              p_r, pad_rows(normals, nr_pad, 0.0).contiguous(), v,
+                              q_tile=q_tile, band=band, max_nn=max_nn)
+        spfh = spfh_p[:n]
 
-    # --- pass 3 — FPFH: 1/d^2-weighted neighbour SPFH sum ---------------------
-    acc = fk.fpfh(starts_el, p_q, p_r, tau, pad_rows(spfh, nr_pad, 0.0).contiguous(),
-                  q_tile=q_tile, band=band)[:n]
-    blocks = acc.reshape(-1, 3, N_BINS)
-    sums = torch.sum(blocks, dim=-1, keepdim=True)
-    blocks = torch.where(sums > 0, blocks * (100.0 / torch.clamp(sums, min=1e-12)), 0.0)
-    feat = torch.where(ms[:, None], blocks.reshape(-1, FEATURE_DIM) + spfh, 0.0)
+        # --- pass 3 — FPFH: 1/d^2-weighted neighbour SPFH sum ---------------------
+        acc = fk.fpfh(starts_el, p_q, p_r, tau, pad_rows(spfh, nr_pad, 0.0).contiguous(),
+                      q_tile=q_tile, band=band)[:n]
+        blocks = acc.reshape(-1, 3, N_BINS)
+        sums = torch.sum(blocks, dim=-1, keepdim=True)
+        blocks = torch.where(sums > 0, blocks * (100.0 / torch.clamp(sums, min=1e-12)), 0.0)
+        feat = torch.where(ms[:, None], blocks.reshape(-1, FEATURE_DIM) + spfh, 0.0)
     out = Cloud(points=torch.where(ms[:, None], ps, PAD_COORD), mask=ms,
                 normals=normals, covariances=cov)
     return out, feat

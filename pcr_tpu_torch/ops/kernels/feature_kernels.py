@@ -80,6 +80,7 @@ import math
 import numpy as np
 import torch
 
+from ...utils import trace
 from . import build, common
 
 LAUNCHES = {"outlier_stats": 0, "survivor_moments": 0, "moments": 0, "spfh": 0,
@@ -159,6 +160,7 @@ def outlier_stats(starts_el, q, r, spacing_hint, *, q_tile: int, band: int,
             tau.data_ptr(), common.stream_of(q))
     build.check_launch("outlier_stats", err)
     LAUNCHES["outlier_stats"] += 1
+    trace.shape("outlier_stats", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return mean_d, found, tau
 
 
@@ -232,6 +234,7 @@ def survivor_moments(starts_el, q, r, keep, tau_out, center, *, q_tile: int,
             normal_k, out.data_ptr(), common.stream_of(q))
     build.check_launch("survivor_moments", err)
     LAUNCHES["survivor_moments"] += 1
+    trace.shape("survivor_moments", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return out
 
 
@@ -328,6 +331,7 @@ def moments(starts_el, q, r, center, voxel_size, *, q_tile: int, band: int,
             q_tile, band, normal_k, lo, hi, out.data_ptr(), common.stream_of(q))
     build.check_launch("moments", err)
     LAUNCHES["moments"] += 1
+    trace.shape("moments", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return out
 
 
@@ -431,6 +435,7 @@ def spfh(starts_el, q, nq, r, nr, voxel_size, *, q_tile: int, band: int,
             scale3, hist.data_ptr(), tau.data_ptr(), common.stream_of(q))
     build.check_launch("spfh", err)
     LAUNCHES["spfh"] += 1
+    trace.shape("spfh", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return hist, tau
 
 
@@ -475,4 +480,5 @@ def fpfh(starts_el, q, r, tau, spfh_r, *, q_tile: int, band: int):
             spfh_r.data_ptr(), n_pad, q_tile, band, out.data_ptr(), common.stream_of(q))
     build.check_launch("fpfh", err)
     LAUNCHES["fpfh"] += 1
+    trace.shape("fpfh", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return out

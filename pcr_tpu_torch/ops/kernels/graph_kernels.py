@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jvp, vmap
 
-from ...utils import se3
+from ...utils import se3, trace
 from . import build, common
 
 LAUNCHES = {"edge_blocks": 0, "edge_assembly": 0}
@@ -243,6 +243,7 @@ def edge_blocks(nodes, src, dst, edge_T, info, w):
                                   *(t.data_ptr() for t in out), common.stream_of(nodes))
     build.check_launch("edge_blocks", err)
     LAUNCHES["edge_blocks"] += 1
+    trace.shape("edge_blocks", n_edges)
     return tuple(out)
 
 
@@ -271,6 +272,7 @@ def assemble_band(plan: AssemblyPlan, Hii, Hjj, Hij, bi, bj):
                                     b.data_ptr(), common.stream_of(Hii))
     build.check_launch("assemble_band", err)
     LAUNCHES["edge_assembly"] += 1
+    trace.shape("edge_assembly", n, plan.src.shape[0])
     return diag, off, b
 
 
@@ -296,4 +298,5 @@ def assemble_dense(plan: AssemblyPlan, Hii, Hjj, Hij, bi, bj):
                                      common.stream_of(Hii))
     build.check_launch("assemble_dense", err)
     LAUNCHES["edge_assembly"] += 1
+    trace.shape("edge_assembly", n, plan.src.shape[0])
     return H, b

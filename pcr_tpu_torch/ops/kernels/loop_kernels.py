@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from ...utils import se3
+from ...utils import se3, trace
 from ...utils.linalg import solve6_cholesky
 from . import build, common
 
@@ -120,6 +120,7 @@ def gnc(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor, mu0: float, delta: to
                           scratch.data_ptr(), out.data_ptr(), common.stream_of(p))
     build.check_launch("gnc", err)
     LAUNCHES["gnc"] += 1
+    trace.shape("gnc", n_pairs, n, iteration_number)
     return out
 
 
@@ -173,4 +174,5 @@ def block_thomas(D: torch.Tensor, U: torch.Tensor, rhs: torch.Tensor) -> torch.T
                                    common.stream_of(D))
     build.check_launch("block_thomas", err)
     LAUNCHES["block_thomas"] += 1
+    trace.shape("block_thomas", m)
     return x

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from ...utils.cloud import pad_rows
 from . import build, common
 
@@ -103,6 +104,7 @@ def nn1_band(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor, *,
                                out_row.data_ptr(), common.stream_of(q))
     build.check_launch("nn1_band", err)
     LAUNCHES["nn1_band"] += 1
+    trace.shape("nn1_band", n_tiles, nq_pad, r.shape[0], q_tile, band)
     return out_d, out_row
 
 
@@ -169,6 +171,7 @@ def nn1(q: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                           common.stream_of(q))
     build.check_launch("nn1", err)
     LAUNCHES["nn1"] += 1
+    trace.shape("nn1", nq, nr)
     return out_d, out_row
 
 
@@ -232,4 +235,5 @@ def nn1_mutual(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor, b_mask: t
                                  ji.data_ptr(), common.stream_of(a))
     build.check_launch("nn1_mutual", err)
     LAUNCHES["nn1_mutual"] += 1
+    trace.shape("nn1_mutual", na, nb)
     return ij, ji

@@ -49,7 +49,7 @@ from .models.global_refine import pose_graph as pg_mod
 from .ops import fpfh_sorted
 from .parallel import mesh as mesh_mod
 from .utils import cloud as cloud_mod
-from .utils import collectives, poses_io, se3
+from .utils import collectives, poses_io, se3, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +99,14 @@ def circuit_pairs(n: int) -> list[tuple[int, int]]:
 
 
 class PairMetrics:
-    """Per-pair structured metrics log."""
+    """Per-pair structured metrics log.
+
+    A row's ``seconds``: in the streamed loops (``run_full``, and the
+    staged runners at ``batch_size`` 1) the pair's latency from the host's
+    first launch for it to the end of its read, ``inflight`` pairs later,
+    plus the retry ladder's wall when the pair was retried; in the batched
+    stage 1 its chunk's wall over the chunk's pairs; in ``run_pair`` the
+    wall of the stage, reads included."""
 
     def __init__(self):
         self.rows = []
@@ -231,16 +238,16 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     # oldest result, so its device-to-host reads overlap the next pairs' work.
     inflight: list[tuple] = []
     drained = 0
-    last_drain = time.time()
 
     def drain_one():
-        nonlocal drained, last_drain
-        k, src_i, tgt_i, res = inflight.pop(0)
-        out[k] = res.transformation.double().cpu().numpy()
-        now = time.time()   # wall-true delta between consecutive reads
-        metrics.add("fgr", src_i, tgt_i, float(res.fitness), float(res.inlier_rmse),
-                    now - last_drain)
-        last_drain = now
+        nonlocal drained
+        k, src_i, tgt_i, res, t_submit = inflight.pop(0)
+        with trace.span("sync", site="drain"):
+            out[k] = res.transformation.double().cpu().numpy()
+            fit, rmse = float(res.fitness), float(res.inlier_rmse)
+        t_read = time.time_ns()
+        trace.record("pair", t_submit, t_read, k=k)
+        metrics.add("fgr", src_i, tgt_i, fit, rmse, (t_read - t_submit) * 1e-9)
         drained = k + 1
         if drained % 50 == 0:  # crash-resumable partial checkpoint
             os.makedirs(os.path.dirname(ckpt), exist_ok=True)
@@ -248,12 +255,13 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
             metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
 
     for k, (src_i, tgt_i) in enumerate(circuit_pairs(n)):
+        t_submit = time.time_ns()
         src, feat_src = features(src_i)
         tgt, feat_tgt = features(tgt_i)
         B = max(src.capacity, tgt.capacity)
         opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)
         res = _fgr_pair_step(src, feat_src, tgt, feat_tgt, cfg.fgr_seed + src_i, B, opts)
-        inflight.append((k, src_i, tgt_i, res))
+        inflight.append((k, src_i, tgt_i, res, t_submit))
         # keep only the features the next pair still needs
         for key in [key for key in feat_cache if key not in (src_i, (src_i + 1) % n)]:
             del feat_cache[key]
@@ -369,6 +377,7 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
     return out
 
 
+@trace.spanned("retry")
 def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
                 seed_base: int = 0):
     """Re-registration ladder: for each multiplier m, FGR on the full clouds
@@ -380,7 +389,8 @@ def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
 
     def score(T):
         fit, _, _ = eval_mod.evaluate_registration(src_c, tgt_c, eval_dist, T)
-        return float(fit)
+        with trace.span("sync", site="gate"):
+            return float(fit)
 
     best_res, best_score, status = res0, score(res0.transformation), "ok"
     for m in cfg.retry_voxel_mults:
@@ -402,11 +412,12 @@ def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
     """Full-cloud fitness at 2*voxel for every refined pair (band-NN
     evaluation); each pair's metrics row gains a ``gate_fitness``."""
     eval_dist = 2 * cfg.voxel_size
-    gate = np.concatenate([eval_mod.evaluate_registration_batch(
+    fit = [eval_mod.evaluate_registration_batch(
         cloud_mod.stack_clouds([clouds[pairs[k][0]] for k in idx]),
         cloud_mod.stack_clouds([clouds[pairs[k][1]] for k in idx]), eval_dist,
-        np.asarray(poses[idx], np.float32))[0].double().cpu().numpy()
-        for idx in _chunks(len(pairs))])
+        np.asarray(poses[idx], np.float32))[0] for idx in _chunks(len(pairs))]
+    with trace.span("sync", site="gate"):
+        gate = np.concatenate([f.double().cpu().numpy() for f in fit])
     row_for = {(r["src"], r["tgt"]): i for i, r in enumerate(metrics.rows)
                if r["stage"] == "mgicp"}
     for k, (s, t) in enumerate(pairs):
@@ -476,18 +487,19 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     retries: list[tuple] = []
     row_of: dict[int, int] = {}
     drained = 0
-    last_drain = time.time()
 
     def drain_one():
-        nonlocal drained, last_drain
-        k, s, t, res = inflight.pop(0)
-        fit = float(res.fitness)
-        out[k] = res.transformation.double().cpu().numpy()
+        nonlocal drained
+        k, s, t, res, t_submit = inflight.pop(0)
+        with trace.span("sync", site="drain"):
+            fit = float(res.fitness)
+            out[k] = res.transformation.double().cpu().numpy()
+            rmse, its = float(res.inlier_rmse), res.scale_iterations.tolist()
+        t_read = time.time_ns()
+        trace.record("pair", t_submit, t_read, k=k)
         row_of[k] = len(metrics.rows)
-        now = time.time()   # wall-true delta between consecutive reads
-        metrics.add("mgicp", s, t, fit, float(res.inlier_rmse), now - last_drain,
-                    status="ok", scale_iterations=res.scale_iterations.tolist())
-        last_drain = now
+        metrics.add("mgicp", s, t, fit, rmse, (t_read - t_submit) * 1e-9, status="ok",
+                    scale_iterations=its)
         if cfg.retry_failed and fit <= cfg.retry_fitness:
             retries.append((k, s, t, res))
         drained = k + 1
@@ -499,9 +511,10 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
 
     for k in range(mine.start, mine.stop):
         s, t = pairs[k]
+        t_submit = time.time_ns()
         res = refine(pyramid(s), pyramid(t), np.asarray(init_poses[k], np.float32),
                      n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations)
-        inflight.append((k, s, t, res))
+        inflight.append((k, s, t, res, t_submit))
         # keep only the pyramids the next pair still needs
         for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
             del pyr_cache[key]
@@ -513,12 +526,14 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
         t0 = time.time()
         res, status, _ = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
                                      pyramid(t), seed_base=s)
-        out[k] = res.transformation.double().cpu().numpy()
+        with trace.span("sync", site="retry"):
+            out[k] = res.transformation.double().cpu().numpy()
+            fit, rmse, its = (float(res.fitness), float(res.inlier_rmse),
+                              res.scale_iterations.tolist())
         metrics.rows[row_of[k]] = dict(
-            stage="mgicp", src=int(s), tgt=int(t), fitness=float(res.fitness),
-            rmse=float(res.inlier_rmse),
+            stage="mgicp", src=int(s), tgt=int(t), fitness=fit, rmse=rmse,
             seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
-            status=status, scale_iterations=res.scale_iterations.tolist())
+            status=status, scale_iterations=its)
         for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
             del pyr_cache[key]
     _annotate_gate_fitness(cfg, clouds, pairs[mine], out[mine], metrics)
@@ -538,6 +553,7 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
     return out
 
 
+@trace.spanned("run_pair")
 def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str = "fgr",
              metrics: PairMetrics | None = None, point_mesh=None, device=None) -> dict:
     """Register ONE scan pair end to end: [FGR ->] M-GICP -> information matrix.
@@ -575,10 +591,11 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
         res_fgr = fgr_mod.registration_fgr(
             bs_f, bt_f, feat_s, feat_t, fgr_mod.default_options(bs_f, bt_f, cfg.voxel_size),
             seed=cfg.fgr_seed + src_i)
-        T0 = res_fgr.transformation.double().cpu().numpy()
-        out["fgr_fitness"] = float(res_fgr.fitness)
-        metrics.add("fgr", src_i, tgt_i, float(res_fgr.fitness), float(res_fgr.inlier_rmse),
-                    time.time() - t0)
+        with trace.span("sync", site="run_pair"):
+            T0 = res_fgr.transformation.double().cpu().numpy()
+            fit, rmse = float(res_fgr.fitness), float(res_fgr.inlier_rmse)
+        out["fgr_fitness"] = fit
+        metrics.add("fgr", src_i, tgt_i, fit, rmse, time.time() - t0)
     elif isinstance(init, str) and init == "fixture":
         A = poses_io.load_reference_absolute(cfg.dataset)
         T0 = np.linalg.inv(A[tgt_i]) @ A[src_i]
@@ -605,23 +622,27 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
         res = ms_mod.multiscale_gicp(src_c, tgt_c, np.asarray(T0, np.float32),
                                      n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations,
                                      scale_capacities=caps)
-    T = res.transformation.double().cpu().numpy()
-    out.update(T=T.tolist(), fitness=float(res.fitness), rmse=float(res.inlier_rmse),
+    with trace.span("sync", site="run_pair"):
+        T = res.transformation.double().cpu().numpy()
+        fit, rmse = float(res.fitness), float(res.inlier_rmse)
+    out.update(T=T.tolist(), fitness=fit, rmse=rmse,
                mgicp_seconds=round(time.time() - t1, 3), seconds=round(time.time() - t0, 3))
-    metrics.add("mgicp", src_i, tgt_i, float(res.fitness), float(res.inlier_rmse),
-                time.time() - t1)
+    metrics.add("mgicp", src_i, tgt_i, fit, rmse, time.time() - t1)
     info = eval_mod.information_matrix(tgt_c, src_c, cfg.voxel_size,
                                        se3.invert(T).astype(np.float32))
-    out["info_trace"] = float(torch.trace(info))
+    with trace.span("sync", site="run_pair"):
+        out["info_trace"] = float(torch.trace(info))
     if writes:
-        poses_io.save_pose(os.path.join(cfg.out_dir("relative_poses_FGR_GICP"),
-                                        f"pose_{src_i}_{tgt_i}.txt"), T)
-        metrics.save(os.path.join(cfg.out_dir("metrics"), f"pair_{src_i}_{tgt_i}.jsonl"))
+        with trace.span("write"):
+            poses_io.save_pose(os.path.join(cfg.out_dir("relative_poses_FGR_GICP"),
+                                            f"pose_{src_i}_{tgt_i}.txt"), T)
+            metrics.save(os.path.join(cfg.out_dir("metrics"), f"pair_{src_i}_{tgt_i}.jsonl"))
     if point_mesh is not None:
         collectives.barrier()
     return out
 
 
+@trace.spanned("run_full")
 def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
              metrics: PairMetrics | None = None,
              methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph")) -> dict:
@@ -681,28 +702,27 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
     retries: list[tuple] = []
     row_of: dict[int, int] = {}
     drained = 0
-    last_drain = time.time()
 
     def save_metrics():
         metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
         metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
 
     def drain_one():
-        nonlocal drained, last_drain
-        k, s, t, res1, res2, gate = inflight.pop(0)
-        out1[k] = res1.transformation.double().cpu().numpy()
-        now = time.time()   # wall-true deltas between reads; the fgr / mgicp split
-        metrics.add("fgr", s, t, float(res1.fitness), float(res1.inlier_rmse),
-                    now - last_drain)                # is by read order
-        last_drain = now
-        out2[k] = res2.transformation.double().cpu().numpy()
-        fit = float(res2.fitness)
+        nonlocal drained
+        k, s, t, res1, res2, gate, t_submit = inflight.pop(0)
+        with trace.span("sync", site="drain"):
+            out1[k] = res1.transformation.double().cpu().numpy()
+            fit1, rmse1 = float(res1.fitness), float(res1.inlier_rmse)
+            out2[k] = res2.transformation.double().cpu().numpy()
+            fit, rmse = float(res2.fitness), float(res2.inlier_rmse)
+            its, gate_fit = res2.scale_iterations.tolist(), float(gate)
+        t_read = time.time_ns()
+        trace.record("pair", t_submit, t_read, k=k)
+        seconds = (t_read - t_submit) * 1e-9
+        metrics.add("fgr", s, t, fit1, rmse1, seconds)
         row_of[k] = len(metrics.rows)
-        now = time.time()
-        metrics.add("mgicp", s, t, fit, float(res2.inlier_rmse), now - last_drain,
-                    status="ok", scale_iterations=res2.scale_iterations.tolist(),
-                    gate_fitness=float(gate))
-        last_drain = now
+        metrics.add("mgicp", s, t, fit, rmse, seconds, status="ok", scale_iterations=its,
+                    gate_fitness=gate_fit)
         if cfg.retry_failed and fit <= cfg.retry_fitness:
             retries.append((k, s, t, res2))
         drained = k + 1
@@ -713,6 +733,7 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
             save_metrics()
 
     for k, (s, t) in enumerate(pairs):
+        t_submit = time.time_ns()
         if isinstance(clouds, cloud_mod.LazyClouds):
             # start the next two scans' non-blocking uploads now, so they run
             # ahead of the pairs that need them (the LRU keeps at least 8)
@@ -729,9 +750,10 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
                                                iterations=cfg.mgicp_iterations)
         # the gate on the padded feature clouds: the same valid points as the
         # full clouds (compact drops only masked rows), at the pair bucket
-        gate, _, _ = eval_mod.evaluate_registration(src_p, tgt_p, eval_dist,
-                                                    res2.transformation)
-        inflight.append((k, s, t, res1, res2, gate))
+        with trace.span("gate"):
+            gate, _, _ = eval_mod.evaluate_registration(src_p, tgt_p, eval_dist,
+                                                        res2.transformation)
+        inflight.append((k, s, t, res1, res2, gate, t_submit))
         evict(s)
         while len(inflight) >= max(cfg.inflight, 1):
             drain_one()
@@ -741,24 +763,27 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
         t0 = time.time()
         res, status, gate_sc = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
                                            pyramid(t), seed_base=s)
-        out2[k] = res.transformation.double().cpu().numpy()
+        with trace.span("sync", site="retry"):
+            out2[k] = res.transformation.double().cpu().numpy()
+            fit, rmse, its = (float(res.fitness), float(res.inlier_rmse),
+                              res.scale_iterations.tolist())
         metrics.rows[row_of[k]] = dict(
-            stage="mgicp", src=int(s), tgt=int(t), fitness=float(res.fitness),
-            rmse=float(res.inlier_rmse),
+            stage="mgicp", src=int(s), tgt=int(t), fitness=fit, rmse=rmse,
             seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
-            status=status, scale_iterations=res.scale_iterations.tolist(),
-            gate_fitness=float(gate_sc))
+            status=status, scale_iterations=its, gate_fitness=float(gate_sc))
         evict(s)
     _flag_stage1_outliers(out1, metrics)
-    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out1)
-    poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out2)
-    poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
-                                 se3.relative_to_absolute(out2))
-    save_metrics()
+    with trace.span("write"):
+        poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out1)
+        poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out2)
+        poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
+                                     se3.relative_to_absolute(out2))
+        save_metrics()
     stage3 = run_stage3_global(cfg, relative_poses=out2, clouds=clouds, n=n, methods=methods)
     return {"stage1": out1, "stage2": out2, "stage3": stage3}
 
 
+@trace.spanned("stage3.information")
 def information_matrices(cfg: PipelineConfig, clouds, relative_poses) -> torch.Tensor:
     """(n, 6, 6) information matrix of every circuit edge, on the clouds'
     device: for edge k, pair (s, t) = circuit_pairs(n)[k], the band-NN
@@ -774,6 +799,7 @@ def information_matrices(cfg: PipelineConfig, clouds, relative_poses) -> torch.T
         cfg.voxel_size, T_edges[idx]) for idx in _chunks(n)])
 
 
+@trace.spanned("stage3")
 def run_stage3_global(cfg: PipelineConfig, relative_poses: np.ndarray | None = None,
                       clouds=None, n: int | None = None,
                       methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph")) -> dict:
@@ -808,10 +834,12 @@ def run_stage3_global(cfg: PipelineConfig, relative_poses: np.ndarray | None = N
         out, pg_info = pg_mod.global_optimization(
             graph, max_correspondence_distance=2 * cfg.voxel_size, edge_prune_threshold=0.25,
             return_info=True)
-        results["pose_graph"] = out.nodes.double().cpu().numpy()
-        pruned_edges = int((~out.edge_mask).sum())
-    for name, poses in results.items():
-        poses_io.save_absolute_poses(cfg.out_dir(f"absolute_poses_{name}"), poses)
+        with trace.span("sync", site="stage3"):
+            results["pose_graph"] = out.nodes.double().cpu().numpy()
+            pruned_edges = int((~out.edge_mask).sum())
+    with trace.span("write"):
+        for name, poses in results.items():
+            poses_io.save_absolute_poses(cfg.out_dir(f"absolute_poses_{name}"), poses)
     # each trajectory scored in its native convention: the closed forms and
     # the reference chain in the reference recovery, the pose graph and the
     # standard chain in standard SE(3)
@@ -831,7 +859,7 @@ def run_stage3_global(cfg: PipelineConfig, relative_poses: np.ndarray | None = N
         diag["pose_graph"]["optimizer"] = pg_info
     path = os.path.join(cfg.out_dir("metrics"), "stage3_consistency.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as fh:
+    with trace.span("write"), open(path, "w") as fh:
         json.dump(diag, fh, indent=2)
     return results
 

@@ -22,6 +22,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from . import trace
+
 # Sentinel coordinate for padding: far enough that no real neighbour query can
 # reach it, small enough to keep squared distances finite in float32.
 PAD_COORD = 1.0e6
@@ -220,6 +222,7 @@ def _upload(h: Cloud, device: torch.device) -> Cloud:
                  covariances=put(h.covariances), colors=put(h.colors))
 
 
+@trace.spanned("data.load")
 def load_dataset(dataset: str, indices=None, capacity: int | None = None,
                  device: torch.device | str | None = None) -> list[Cloud]:
     """Load a dataset's scans padded to the dataset bucket (or ``capacity``)
@@ -373,6 +376,7 @@ def bucket_capacity(c: Cloud, granularity: int = 4096) -> int:
     return min(c.capacity, max(granularity, -(-nv // granularity) * granularity))
 
 
+@trace.spanned("data.plan_caps")
 def plan_scale_caps(clouds: list[Cloud], scales: list[float],
                     bucket: int = 1024, margin: int = 64) -> tuple[int, ...]:
     """Host-side capacity planner for the multiscale pyramid: for each voxel
