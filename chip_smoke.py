@@ -94,7 +94,8 @@ Phases (any failure ends the run with a non-zero exit code):
  18. entry points — the 8 scans written as binary PCD in the NCLT layout
                under a temporary reference root; pcr_tpu_torch.__main__.main
                runs ``full --dataset NCLT --n 8`` (loading, run_full through
-               K1-K6, K8, K9, K11, K12; the main path as a user calls it): its
+               K1-K12 but K7; the main path as a user calls it; K10's and
+               slab_starts' arguments kept for phase 23): its
                stage-1 and stage-2 pose files within 1e-6 of phase 10's, those
                kernels launched (K11 at least once a pair, K12 once an LM
                iteration),
@@ -178,16 +179,33 @@ Phases (any failure ends the run with a non-zero exit code):
                bit for bit; kernel ms, plain ms and host wall, bound, and
                for K9 at m = 900 a dense torch.linalg.solve of the (6m)^2
                system, for K11 torch.cdist and its minima on both axes, for
-               K12's assembly one index_add_ of every edge's packed terms.
+               K12's assembly one index_add_ of every edge's packed terms;
+               K10 (csrc/gicp.cu) on the first Gauss-Newton iteration of
+               each scale of phase 18's ``full`` run (10240-21504 sorted
+               rows) and of the Facade-scale pair's finest scale (check_k10:
+               gicp_move's starts bit-equal to the rule's, q_sp within 1e-4
+               m, gicp_rows' sums within 1e-4 of the largest entry with the
+               counts exact, gicp_update's T within 1e-6 of the plain update
+               of the same sums; each twice bit for bit), each launch's ms,
+               plain ms and bound at the finest scales and one iteration's
+               chain with K1 against the plain chain; at most 5 device
+               operations a band GICP iteration (profiler); the band sweep's
+               slab_starts (csrc/band_nn.cu) bit-equal to the rule in
+               PyTorch on every shape phase 18's run gave it (the GICP's
+               final metrics, the gate, stage 3's information matrices,
+               stage 1's features), twice bit for bit.
 The line before the last is the kernels' JSON record (``launches``: K1-K6,
-K8, K9, K11 and K12 from the CLI's ``full`` run of phase 18, K7 from the
+K8-K12 and slab_starts from the CLI's ``full`` run of phase 18, K7 from the
 brute GICP; ``max_abs_err`` of K4 over the cloud's real rows, of K8 over
 the normalised poses, of K9 the refined solve's relative residual, of K11
 the worst differing pick over its rounding bound, of K12's blocks their
 worst error over its bound and of its assembly the (zero) difference from
-the CPU's; the times of K8 and K11 at the main path's shape, one NCLT pair,
-and of K9 and K12 at n = 901; K12 is two records, ``edge_blocks`` and
-``edge_assembly``, one a launch);
+the CPU's, of K10's launches the worst q_sp, sums and T error; the times
+of K8 and K11 at the main path's shape, one NCLT pair, of K9 and K12 at
+n = 901, of K10 at the main path's finest scale and of slab_starts at its
+largest shape; K12 is two records, ``edge_blocks`` and ``edge_assembly``,
+and K10 three, ``gicp_move``, ``gicp_rows`` and ``gicp_update``, one a
+launch);
 the last line is {"ok": true, "device": {...}}.  A kernel's ``bound_ms`` is the larger of its
 bytes (each input read once, each output written once; K8 needs p and q
 only on the rows of nonzero weight) over 3.35 TB/s and
@@ -706,7 +724,8 @@ def phase_kernels(dev, clouds, gt) -> list[dict]:
     ]
 
 
-STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments")
+STAGE2_KERNELS = ("nn1_band", "outlier_stats", "survivor_moments", "gicp_move", "gicp_rows",
+                  "gicp_update")
 STAGE1_KERNELS = ("nn1_band", "moments", "spfh", "fpfh", "nn1_mutual", "gnc")
 LM_KERNELS = ("block_thomas", "edge_blocks", "edge_assembly")
 BRUTE_KERNELS = ("nn1",)
@@ -714,11 +733,12 @@ BRUTE_KERNELS = ("nn1",)
 
 def _launch_counts() -> list:
     from pcr_tpu_torch.ops.kernels import feature_kernels as fk
+    from pcr_tpu_torch.ops.kernels import gicp_kernels as k10
     from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
     from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
-    return [nk.LAUNCHES, fk.LAUNCHES, lk.LAUNCHES, gk.LAUNCHES]
+    return [nk.LAUNCHES, fk.LAUNCHES, lk.LAUNCHES, gk.LAUNCHES, k10.LAUNCHES]
 
 
 def reset_launches() -> None:
@@ -781,22 +801,272 @@ def watching(module, name: str, calls: list | None = None, keep=None):
 
 @contextlib.contextmanager
 def plain_loops():
-    """While the block runs, the loop kernels' wrappers (K8, K9, K12) are
-    their plain versions (the code the port ran before them), on the card."""
+    """While the block runs, the loop kernels' wrappers (K8, K9, K10 and the
+    band sweep's slab starts, K12) are their plain versions (the code the
+    port ran before them), on the card."""
+    from pcr_tpu_torch.ops.kernels import gicp_kernels as k10
     from pcr_tpu_torch.ops.kernels import graph_kernels as gk
     from pcr_tpu_torch.ops.kernels import loop_kernels as lk
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
 
-    wrappers = lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense
+    wrappers = (lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense,
+                k10.gicp_move, nk.slab_starts, k10.gicp_rows, k10.gicp_update)
     lk.gnc, lk.block_thomas = lk.gnc_reference, lk.block_thomas_reference
     gk.edge_blocks = gk.edge_blocks_reference
     gk.assemble_band = lambda plan, *blocks: gk.assemble_band_reference(
         plan.n, plan.src.long(), plan.dst.long(), *blocks)
     gk.assemble_dense = lambda plan, *blocks: gk.assemble_dense_reference(
         plan.n, plan.src.long(), plan.dst.long(), *blocks)
+    k10.gicp_move, nk.slab_starts = k10.gicp_move_reference, nk.slab_starts_reference
+    k10.gicp_rows, k10.gicp_update = k10.gicp_rows_reference, k10.gicp_update_reference
     try:
         yield
     finally:
-        lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense = wrappers
+        (lk.gnc, lk.block_thomas, gk.edge_blocks, gk.assemble_band, gk.assemble_dense,
+         k10.gicp_move, nk.slab_starts, k10.gicp_rows, k10.gicp_update) = wrappers
+
+
+GICP_PAIRS = ("nclt", "facade")
+FACADE_START_ERR = (0.05, 0.02)   # m along x, rad about z: the Facade pair's start off truth
+
+
+def gicp_pair(kind: str, dev):
+    """(source pyramid, target pyramid, start pose, ground truth) of a
+    5-scale band M-GICP at the main path's capacities (``plan_scale_caps``):
+    ``nclt``, the circuit's first pair (scan 1 into scan 0) from its
+    FGR-error start; ``facade``, the Facade-scale circuit's first pair in
+    the 90112 bucket, from its truth moved FACADE_START_ERR."""
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.utils import cloud
+
+    if kind == "nclt":
+        scans, gt, init = make_circuit()
+        cap, T_gt, T0 = CAPACITY, gt[0], init[0]
+    else:
+        scans, absolute = make_facade_circuit()
+        cap, T_gt = FACADE_CAPACITY, np.linalg.inv(absolute[0]) @ absolute[1]
+        E = np.eye(4)
+        E[:3, :3], E[0, 3] = _rot_z(FACADE_START_ERR[1]), FACADE_START_ERR[0]
+        T0 = E @ T_gt
+    src, tgt = (cloud.from_numpy(scans[k], cap, device=dev) for k in (1, 0))
+    caps = cloud.plan_scale_caps([src, tgt], multiscale.create_scales(5))
+    pyrs = [multiscale.build_pyramid(c, 5, scale_capacities=caps) for c in (src, tgt)]
+    return pyrs[0], pyrs[1], T0.astype(np.float32), T_gt
+
+
+@contextlib.contextmanager
+def keeping_k10(kept: dict):
+    """While the block runs, keep in ``kept`` the arguments of K10's three
+    launches in the first Gauss-Newton iteration at each number of sorted
+    rows, ("k10", rows) -> {name: (args, keywords)}, cloned as they were at
+    the call (the loop updates T and its state in place), and those of the
+    first band sweep's slab starts at each shape, ("slab_starts", queries,
+    band) -> (args, keywords)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import gicp_kernels as k10
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    modules = {"gicp_move": k10, "gicp_rows": k10, "gicp_update": k10, "slab_starts": nk}
+    wrappers = {name: getattr(module, name) for name, module in modules.items()}
+    iteration = None
+
+    def keep(name):
+        def call(*args, **kw):
+            nonlocal iteration
+            if name == "slab_starts":
+                kept.setdefault(("slab_starts", args[0].shape[0], kw["band"]), (args, kw))
+                return wrappers[name](*args, **kw)
+            if name == "gicp_move":
+                key = ("k10", args[1].shape[0])
+                iteration = None if key in kept else kept.setdefault(key, {})
+            if iteration is not None and name not in iteration:
+                iteration[name] = (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                                   kw)
+            return wrappers[name](*args, **kw)
+        return call
+
+    for name, module in modules.items():
+        setattr(module, name, keep(name))
+    try:
+        yield
+    finally:
+        for name, module in modules.items():
+            setattr(module, name, wrappers[name])
+
+
+def k10_inputs(src, tgt, max_dist: float, T, loss: str = "l1", q_tile: int = 1024) -> dict:
+    """The arguments of K10's three launches in the first Gauss-Newton
+    iteration of registration_gicp(src, tgt, max_dist, T) (``keeping_k10``):
+    name -> (args, keywords)."""
+    from pcr_tpu_torch.models import gicp
+
+    kept = {}
+    with keeping_k10(kept):
+        gicp.registration_gicp(src, tgt, max_dist, T, loss=loss, max_iteration=1,
+                               q_tile=q_tile)
+    return next(v for k, v in kept.items() if k[0] == "k10")
+
+
+K10_MOVE_ROW_BYTES = 25   # a sorted row moved: 12 + 1 read, 12 written
+K10_ROWS_ROW_BYTES = 65   # a sorted row summed: q_sp, normal 12 + 12, mask 1, K1's 8, target 32
+K10_ROW_OPS = 330         # FP32 operations of a valid row in gicp_rows, a reckoning
+K10_PARTIAL_BYTES = 4 * 32  # a partial row of gicp_rows
+
+
+def check_k10(label: str, inputs: dict, timed: bool = False) -> dict:
+    """K10 on one iteration's arguments (``k10_inputs``) against its plain
+    versions: gicp_move's starts bit-equal to those of the band sweep's
+    slab_starts kernel and of the rule in PyTorch
+    (nn_kernels.slab_starts_reference) on its q_sp, q_sp within MAX_K10_Q of
+    the plain one; gicp_rows' partial rows summed, with the plain sums'
+    counts exactly and its H, g and sum of d2 within MAX_K10_SUMS of the
+    largest of each; gicp_update's T within MAX_K10_T of the plain update of
+    the same sums and its state's fitness and rmse within MAX_K10_SUMS; two
+    runs bit for bit.  With ``timed``, each launch's ms (CUDA events behind a
+    device spin, median of 20) beside its plain version's (``plain_times``,
+    median of 20) and its bound, and one iteration's chain with K1, through
+    K10 and through the plain versions, each with its host wall; ``timed``
+    adds (err, ms, plain ms, bound ms, bound by) under each launch's name."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import gicp_kernels as k10
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    margs, mkw = inputs["gicp_move"]
+    rargs, rkw = inputs["gicp_rows"]
+    uargs, _ = inputs["gicp_update"]
+    _, pts, _, index, max_dist = margs
+    slab = (index.r_sorted, index.ra_sorted, index.axis, max_dist)
+    q_k, s_k = k10.gicp_move(*margs, **mkw)
+    q_k2, s_k2 = k10.gicp_move(*margs, **mkw)
+    q_p, _ = k10.gicp_move_reference(*margs, **mkw)
+    s_rule = nk.slab_starts_reference(q_k, *slab, **mkw)
+    s_only = nk.slab_starts(q_k, *slab, **mkw)
+    q_err = float((q_k - q_p).abs().max())
+    if not (torch.equal(s_k, s_rule) and torch.equal(s_only, s_rule) and torch.equal(q_k, q_k2)
+            and torch.equal(s_k, s_k2)):
+        raise AssertionError(f"K10 {label}: gicp_move's or slab_starts' starts differ from the "
+                             f"rule's on its q_sp, or between two runs")
+    if not q_err <= MAX_K10_Q:
+        raise AssertionError(f"K10 {label}: gicp_move's q_sp {q_err} off the plain one")
+    rows_k = k10.gicp_rows(*rargs, **rkw)
+    if not torch.equal(rows_k, k10.gicp_rows(*rargs, **rkw)):
+        raise AssertionError(f"K10 {label}: gicp_rows' sums differ between two runs")
+    sums_k = rows_k.sum(dim=0, keepdim=True)
+    sums_p = k10.gicp_rows_reference(*rargs, **rkw)
+    if not torch.equal(sums_k[0, 27:29], sums_p[0, 27:29]):
+        raise AssertionError(f"K10 {label}: counts {sums_k[0, 27:29].tolist()} against the plain "
+                             f"{sums_p[0, 27:29].tolist()}")
+    sums_err = max(float((sums_k[0, a:b] - sums_p[0, a:b]).abs().max()
+                         / sums_p[0, a:b].abs().max().clamp(min=1e-30))
+                   for a, b in ((0, 21), (21, 27), (29, 30)))
+    _, T0, state0 = uargs[:3]
+    rel = uargs[3:]
+    T_k, st_k = T0.clone(), state0.clone()
+    k10.gicp_update(sums_p, T_k, st_k, *rel)
+    T_k2, st_k2 = T0.clone(), state0.clone()
+    k10.gicp_update(rows_k, T_k2, st_k2, *rel)
+    T_k3, st_k3 = T0.clone(), state0.clone()
+    k10.gicp_update(rows_k, T_k3, st_k3, *rel)
+    T_p, st_p = T0.clone(), state0.clone()
+    k10.gicp_update_reference(sums_p, T_p, st_p, *rel)
+    t_err = float((T_k - T_p).abs().max())
+    st_err = float(((st_k[:2] - st_p[:2]).abs() / st_p[:2].abs().clamp(min=1e-30)).max())
+    if not (sums_err <= MAX_K10_SUMS and t_err <= MAX_K10_T and st_err <= MAX_K10_SUMS
+            and torch.equal(st_k[2:], st_p[2:]) and torch.isfinite(T_k2).all()
+            and torch.equal(T_k2, T_k3) and torch.equal(st_k2, st_k3)):
+        raise AssertionError(f"K10 {label}: sums {sums_err}, T {t_err}, state {st_err} "
+                             f"({st_k.tolist()} against {st_p.tolist()}), or two updates differ")
+    out = dict(q_err=q_err, sums_err=sums_err, T_err=t_err, state_err=st_err,
+               rows=int(pts.shape[0]), band=mkw["band"], valid=int(sums_p[0, 27]))
+    print(f"K10 {label}: {out['rows']} sorted rows ({out['valid']} valid), band {out['band']}: "
+          f"starts bit-equal to the rule's, q_sp within {q_err:.3e}, sums within "
+          f"{sums_err:.3e} (counts equal), T within {t_err:.3e}, state within {st_err:.3e}; "
+          f"two runs bit for bit")
+    if not timed:
+        return out
+    n, tiles, blocks = pts.shape[0], s_k.shape[0], rows_k.shape[0]
+    T_u, st_u = T0.clone(), state0.clone()     # the update in place, rep after rep
+    T_v, st_v = T0.clone(), state0.clone()
+    launches = {
+        "gicp_move": (q_err, lambda: k10.gicp_move(*margs, **mkw),
+                      lambda: k10.gicp_move_reference(*margs, **mkw),
+                      bound(K10_MOVE_ROW_BYTES * n + 4 * tiles + 48, 18 * n)),
+        "gicp_rows": (sums_err, lambda: k10.gicp_rows(*rargs, **rkw),
+                      lambda: k10.gicp_rows_reference(*rargs, **rkw),
+                      bound(K10_ROWS_ROW_BYTES * n + K10_PARTIAL_BYTES * blocks,
+                            K10_ROW_OPS * out["valid"])),
+        "gicp_update": (t_err, lambda: k10.gicp_update(rows_k, T_u, st_u, *rel),
+                        lambda: k10.gicp_update_reference(sums_p, T_v, st_v, *rel),
+                        bound(K10_PARTIAL_BYTES * blocks + 2 * 64, 30 * blocks + 600)),
+    }
+    for name, (err, kernel, plain, lim) in launches.items():
+        out[name] = (err, cuda_ms(kernel, 20), plain_times(plain, 20)[0], *lim)
+
+    def chain(move, rows_fn, update):
+        T_c, st_c = T0.clone(), state0.clone()
+
+        def run():
+            q, s = move(*margs, **mkw)
+            d, r = nk.nn1_band(s, q, index.r_sorted, q_tile=mkw["q_tile"], band=mkw["band"])
+            update(rows_fn(q, *rargs[1:3], d, r, *rargs[5:], **rkw), T_c, st_c, *rel)
+        return run
+
+    kernel_ms, kernel_wall = plain_times(chain(k10.gicp_move, k10.gicp_rows, k10.gicp_update),
+                                         20)
+    plain_ms, plain_wall = plain_times(chain(k10.gicp_move_reference, k10.gicp_rows_reference,
+                                             k10.gicp_update_reference), 20)
+    k1_ms = cuda_ms(lambda: nk.nn1_band(s_k, q_k, index.r_sorted, q_tile=mkw["q_tile"],
+                                        band=mkw["band"]), 20)
+    out.update(k1_ms=k1_ms, chain_ms=kernel_ms, chain_wall_ms=kernel_wall, plain_ms=plain_ms,
+               plain_wall_ms=plain_wall)
+    print(f"K10 {label} timed: " + "; ".join(
+        f"{name} {out[name][1]:.4f} ms (plain {out[name][2]:.4f} ms, bound {out[name][3]:.6f} "
+        f"ms, {out[name][4]})" for name in launches)
+        + f"; K1 {k1_ms:.4f} ms; one iteration's chain K10 + K1 {kernel_ms:.4f} ms (host "
+          f"{kernel_wall:.4f} ms), plain chain + K1 {plain_ms:.4f} ms (host {plain_wall:.4f} ms)")
+    return out
+
+
+def check_slab_starts(label: str, inputs, timed: bool = False) -> tuple:
+    """The band sweep's slab_starts kernel on one band query's arguments
+    (``keeping_k10``) against the rule in PyTorch
+    (nn_kernels.slab_starts_reference): bit-equal, two runs bit for bit.
+    Returns (0.0,), or with ``timed`` (0.0, ms, plain ms, bound ms, bound
+    by)."""
+    import torch
+
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    args, kw = inputs
+    s_k = nk.slab_starts(*args, **kw)
+    s_p = nk.slab_starts_reference(*args, **kw)
+    if not (torch.equal(s_k, s_p) and torch.equal(s_k, nk.slab_starts(*args, **kw))):
+        raise AssertionError(f"slab_starts {label}: the kernel's starts differ from the rule's "
+                             f"or between two runs")
+    if not timed:
+        return (0.0,)
+    n = args[0].shape[0]
+    ms = cuda_ms(lambda: nk.slab_starts(*args, **kw), 20)
+    plain_ms, plain_wall = plain_times(lambda: nk.slab_starts_reference(*args, **kw), 20)
+    lim = bound(12 * n + 4 * s_k.shape[0], 0)
+    print(f"slab_starts {label} timed: {ms:.4f} ms, plain {plain_ms:.4f} ms (host "
+          f"{plain_wall:.4f} ms), bound {lim[0]:.6f} ms ({lim[1]})")
+    return (0.0, ms, plain_ms, *lim)
+
+
+def iteration_device_ops(src, tgt, max_dist: float, T0) -> float:
+    """Device operations (``device_ops``) a band GICP iteration of ``src``
+    into ``tgt`` launches: the difference between 11 and 1 iterations with
+    the convergence test off, over 10."""
+    from pcr_tpu_torch.models import gicp
+
+    def run(n):
+        return lambda: gicp.registration_gicp(src, tgt, max_dist, T0, max_iteration=n,
+                                              relative_fitness=0.0, relative_rmse=0.0)
+
+    return (device_ops(run(11)) - device_ops(run(1))) / 10
 
 
 def check_pose_files(rel_dir: Path, out: np.ndarray) -> None:
@@ -1827,9 +2097,16 @@ def phase_entry_points(clouds, scans, gt, full_out, full_wall: float) -> tuple[d
         write_scans(Path(tmp) / "reference", scans)
         out_root = Path(tmp) / "out"
         reset_launches()
-        summary, wall = synced(lambda: run_cli(["full", "--dataset", "NCLT", "--n", str(N_SCANS),
-                                                "--output-root", str(out_root)]))
+        kept = {}
+        with keeping_k10(kept):
+            summary, wall = synced(lambda: run_cli(["full", "--dataset", "NCLT", "--n",
+                                                    str(N_SCANS), "--output-root",
+                                                    str(out_root)]))
         launches = read_launches()
+        for key, args in kept.items():
+            case = (f"main path, {key[1]} rows" if key[0] == "k10"
+                    else f"main path, {key[1]} queries, band {key[2]}")
+            LOOP_INPUTS[("gicp" if key[0] == "k10" else key[0], case)] = args
         check_launched(launches, MAIN_KERNELS, "python -m pcr_tpu_torch full")
         check_matching_launches(launches, "python -m pcr_tpu_torch full", exact=False)
         check_lm_launches(launches, "python -m pcr_tpu_torch full")
@@ -2435,6 +2712,23 @@ MIN_THOMAS_RESIDUAL = 1e-6
 GNC_ROW_OPS = 70          # FP32 operations of a kept row in a GNC step (csrc/loops.cu)
 GNC_STEP_OPS = 400        # about, of a pair's 6x6 solve, exp and compose a step
 PLAIN_LOOP_REPS = 2
+MAX_K10_Q = 1e-4       # m: gicp_move's q_sp against transform_points (another rounding order)
+MAX_K10_SUMS = 1e-4    # of the largest entry: H, g and sum d2 summed in other orders
+MAX_K10_T = 1e-6       # gicp_update's T against the plain update of the same sums
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) the profiler records while
+    ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")
+               and not (hasattr(e, "is_user_annotation") and e.is_user_annotation()))
 
 
 def plain_times(fn, reps: int) -> tuple[float, float]:
@@ -2838,9 +3132,47 @@ def check_k12(label: str, args, library: bool):
     return (worst, ms, plain_ms, *lim_b, None), (0.0, ms_a, plain_a, *lim_a, lib)
 
 
-def phase_loop_kernels() -> list[dict]:
-    """Phase 23 (module docstring): K8, K9, K11 and K12 against their plain
-    versions on the arguments the earlier phases gave them.  The JSON record
+def phase_k10(dev) -> list[dict]:
+    """Phase 23's K10 part (module docstring): K10 on the first Gauss-Newton
+    iteration of each scale of the CLI's ``full`` run (phase 18), timed at
+    its finest scale, and on the Facade-scale pair's finest scale, timed;
+    the device operations an iteration on the NCLT pair's finest scale; the
+    band sweep's slab_starts on each shape the same run gave it, timed at
+    its largest.  The JSON record keeps the times at the main path's finest
+    scale."""
+    from pcr_tpu_torch.models import multiscale
+
+    k10 = {case: args for (name, case), args in LOOP_INPUTS.items() if name == "gicp"}
+    starts = {case: args for (name, case), args in LOOP_INPUTS.items() if name == "slab_starts"}
+    if not (k10 and starts):
+        raise AssertionError(f"phase 23 lacks K10's inputs: {sorted(LOOP_INPUTS)}")
+    finest = max(k10, key=lambda case: k10[case]["gicp_move"][0][1].shape[0])
+    got = {case: check_k10(case, args, timed=case == finest) for case, args in k10.items()}
+    dist = multiscale.max_correspondence_distances(multiscale.create_scales(5))[-1]
+    src, tgt, T0, _ = gicp_pair("facade", dev)
+    check_k10("Facade pair, finest scale", k10_inputs(src[-1], tgt[-1], dist, T0), timed=True)
+    src, tgt, T0, _ = gicp_pair("nclt", dev)
+    ops = iteration_device_ops(src[-1], tgt[-1], dist, T0)
+    print(f"K10: {ops:g} device operations a band GICP iteration at the NCLT pair's finest "
+          f"scale ({src[-1].capacity} rows)")
+    if not ops <= 5:
+        raise AssertionError(f"a band GICP iteration launched {ops} device operations")
+    largest = max(starts, key=lambda case: starts[case][0][0].shape[0])
+    checked = {case: check_slab_starts(case, args, timed=case == largest)
+               for case, args in starts.items()}
+    print(f"slab_starts bit-equal to the rule's on {len(checked)} shapes of the main path")
+    return [record(name, "pcr_tpu_torch/csrc/gicp.cu", "pcr_tpu/models/gicp.py:442",
+                   [(r[err],) for r in got.values()], got[finest][name])
+            for name, err in (("gicp_move", "q_err"), ("gicp_rows", "sums_err"),
+                              ("gicp_update", "T_err"))] + [
+        record("slab_starts", "pcr_tpu_torch/csrc/band_nn.cu",
+               "pcr_tpu/ops/band_nn.py:105", list(checked.values()), checked[largest])]
+
+
+def phase_loop_kernels(dev) -> list[dict]:
+    """Phase 23 (module docstring): K8, K9, K11, K12 and K10 (``phase_k10``)
+    against their plain versions on the arguments the earlier phases gave
+    them.  The JSON record
     keeps K8's and K11's times at the main path's shape (one NCLT stage-1
     pair: the CLI's ``full`` streams stage 1, one launch a pair) and K9's
     and K12's at NCLT's n = 901."""
@@ -2855,7 +3187,8 @@ def phase_loop_kernels() -> list[dict]:
     if len(gnc) != 3 or len(thomas) != 2 or len(mutual) != 2 or len(edges) != 3:
         raise AssertionError(f"phase 23 lacks inputs: {sorted(LOOP_INPUTS)}")
     nclt_edges = next(r for case, r in edges.items() if case.startswith("NCLT"))
-    return [record("gnc", "pcr_tpu_torch/csrc/loops.cu", "pcr_tpu/models/fgr.py:166",
+    return phase_k10(dev) + [
+            record("gnc", "pcr_tpu_torch/csrc/loops.cu", "pcr_tpu/models/fgr.py:166",
                    list(gnc.values()), gnc["NCLT stage 1, batch 1"]),
             record("block_thomas", "pcr_tpu_torch/csrc/loops.cu",
                    "pcr_tpu/models/global_refine/pose_graph.py:173", list(thomas.values()),
@@ -2918,7 +3251,7 @@ def main() -> int:
     one = phase_mesh_one_rank(clouds, scans, init, batched, pair)
     phase_mesh_two_ranks(scans, gt, init, batched, one)
     phase_graph_builder(dev)
-    records += phase_loop_kernels()
+    records += phase_loop_kernels(dev)
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

@@ -6,6 +6,12 @@
 // once by the wrapper).  Output: exact d2 of the winner and its ABSOLUTE
 // sorted row, the first minimum on ties (as torch.min).
 //
+// The slab starts come from slab_starts below, one block a query tile
+// (ops/band_nn.slab_starts' rule, common.cuh's slab_start: the tile's
+// extent along the sweep axis, three binary searches in the sorted axis
+// coordinates and the centred-slab choice); K10's gicp_move (csrc/gicp.cu)
+// takes its starts with the same device code.
+//
 // Bound on the H100: issue rate and latency.  Each (query, slab row) pair
 // is ~11 instructions (d2 rounded op by op, a compare, two selects) against
 // a few MB of bytes; the main path launches it with 10240-32768 queries, too
@@ -131,7 +137,34 @@ int launch_nn1_band(const int* starts, const float* q, const float* r, int nq_pa
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kStartThreads = 256;
+
+__global__ void __launch_bounds__(kStartThreads)
+    slab_starts_kernel(const float* __restrict__ q, const float* __restrict__ ra, int nr,
+                       const long long* __restrict__ axis_p, int q_tile, int band, int max_blk,
+                       float max_dist, int* __restrict__ starts) {
+  const int axis = static_cast<int>(*axis_p);
+  pcr::SlabExtent ext;
+  for (int k = threadIdx.x; k < q_tile; k += kStartThreads) {
+    const size_t i = static_cast<size_t>(blockIdx.x) * q_tile + k;
+    pcr::slab_extent(ext, q[3 * i + axis]);
+  }
+  pcr::slab_start<kStartThreads>(ext, ra, nr, band, max_blk, max_dist, starts + blockIdx.x);
+}
+
 }  // namespace
+
+// slab_starts: q (n_tiles * q_tile, 3) sorted queries, masked and padding
+// rows at SENTINEL; ra (nr,) the ascending axis coordinates of the refs;
+// axis an int64 on the device; starts (n_tiles,) written.
+extern "C" int pcr_slab_starts(const float* q, const float* ra, int nr, const long long* axis,
+                               int n_tiles, int q_tile, int band, int max_blk, float max_dist,
+                               int* starts, cudaStream_t stream) {
+  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
+  slab_starts_kernel<<<n_tiles, kStartThreads, 0, stream>>>(q, ra, nr, axis, q_tile, band,
+                                                            max_blk, max_dist, starts);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The wrapper guarantees nq_pad % q_tile == 0 and starts[t] + 2*band <= the
 // ref rows of r.

@@ -267,6 +267,185 @@ __device__ __forceinline__ void team_moments(const ROWS& rows, int n, int lane,
   }
 }
 
+// The slab start of one query tile of the band sweep (ops/band_nn.slab_starts'
+// rule), taken by a block: csrc/band_nn.cu's slab_starts and csrc/gicp.cu's
+// gicp_move.  Each thread folds the axis coordinates of its rows of the tile
+// into a SlabExtent; slab_start merges the block's and thread 0 writes the
+// tile's start, so both kernels take the same starts bit for bit.
+
+constexpr float kSlabSentinel = 1.0e6f;   // a masked or padding row (ops/kernels/common.SENTINEL)
+constexpr float kSlabBig = 3.0e38f;       // ops/kernels/common.BIG
+
+// The tile's smallest coordinate over every row, its largest over the real
+// rows (those below kSlabSentinel / 2), and whether it has a real row.
+struct SlabExtent {
+  float mn = INFINITY;
+  float mx = -kSlabBig;
+  int real = 0;
+};
+
+__device__ __forceinline__ void slab_extent(SlabExtent& e, float a) {
+  e.mn = fminf(e.mn, a);
+  if (a < kSlabSentinel / 2) {
+    e.mx = fmaxf(e.mx, a);
+    e.real = 1;
+  }
+}
+
+// torch.searchsorted on the ascending a[0, n): the first i with a[i] >= v,
+// or with RIGHT the first i with a[i] > v.
+template <bool RIGHT>
+__device__ long long search_sorted(const float* __restrict__ a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const float x = a[mid];
+    if (RIGHT ? x <= v : x < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ long long clamp64(long long x, long long lo, long long hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Refs level with a tile (sorted rows [lo, hi)) inside the slab at start.
+__device__ __forceinline__ long long level_rows(long long lo, long long hi, long long start,
+                                                long long band) {
+  const long long end = hi < start + 2 * band ? hi : start + 2 * band;
+  const long long begin = lo > start ? lo : start;
+  return end > begin ? end - begin : 0;
+}
+
+// The block's extents merged (warp shuffles, then warp order), and thread 0
+// writes *start: pcr_tpu's slab at the first ref within max_dist of the
+// tile's lowest row, rounded down to band and capped at max_blk bands,
+// unless it misses refs level with the tile (ra in [mn, mx]) and the slab
+// centred on them holds them all.  Every thread of the block calls it.
+template <int THREADS>
+__device__ void slab_start(SlabExtent e, const float* __restrict__ ra, int nr, int band,
+                           int max_blk, float max_dist, int* start) {
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps");
+  __shared__ SlabExtent warps[THREADS / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    e.mn = fminf(e.mn, __shfl_xor_sync(0xffffffffu, e.mn, off));
+    e.mx = fmaxf(e.mx, __shfl_xor_sync(0xffffffffu, e.mx, off));
+    e.real |= __shfl_xor_sync(0xffffffffu, e.real, off);
+  }
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = e;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < THREADS / 32; ++w) {
+    e.mn = fminf(e.mn, warps[w].mn);
+    e.mx = fmaxf(e.mx, warps[w].mx);
+    e.real |= warps[w].real;
+  }
+  const long long b = band, top = max_blk;
+  const long long ss = search_sorted<false>(ra, nr, __fsub_rn(e.mn, max_dist));
+  const long long lo = search_sorted<false>(ra, nr, e.mn);
+  const long long hi = search_sorted<true>(ra, nr, e.mx);
+  const long long ours = clamp64(ss / b, 0, top) * b;
+  const long long centred = clamp64((lo + hi) / 2 - b, 0, top * b);
+  const long long level = hi - lo;
+  const bool centre = level_rows(lo, hi, ours, b) < level &&
+                      level_rows(lo, hi, centred, b) == level && e.real;
+  *start = static_cast<int>(centre ? centred : ours);
+}
+
+// The pose update of K8 and K10 (csrc/loops.cu, csrc/gicp.cu).
+
+// xi = H^-1 g for the SPD 6x6 H by Cholesky H = L L^T (torch.linalg.cholesky
+// then cholesky_solve, as utils/linalg.solve6_cholesky).
+__device__ inline void cholesky_solve6(const float (&H)[6][6], const float (&g)[6],
+                                       float (&x)[6]) {
+  float L[6][6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float s = H[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
+    L[j][j] = sqrtf(s);
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
+      float t = H[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
+      L[i][j] = t / L[j][j];
+    }
+  }
+  float y[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float s = g[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
+    y[i] = s / L[i][i];
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
+    x[i] = s / L[i][i];
+  }
+}
+
+// out = a K + b K^2 + I for K = skew(w), K^2 as the 3x3 product (utils/se3.py).
+__device__ __forceinline__ void rodrigues(const float (&K)[3][3], const float (&K2)[3][3],
+                                          float a, float b, float (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[i][j] = (i == j ? 1.0f : 0.0f) + a * K[i][j] + b * K2[i][j];
+  }
+}
+
+// T <- se3_exp(xi) T for the twist xi = (omega, v), with utils/se3.py's
+// small-angle branches; T is a pose's top three rows (R | t), row-major.
+__device__ inline void se3_exp_compose(const float (&xi)[6], float* T) {
+  const float wx = xi[0], wy = xi[1], wz = xi[2];
+  const float theta2 = wx * wx + wy * wy + wz * wz;
+  const float theta = sqrtf(fmaxf(theta2, 1e-32f));
+  const bool taylor = theta2 < 1e-12f;
+  const float sn = sinf(theta), cs = cosf(theta);
+  const float a = taylor ? 1.0f - theta2 / 6.0f : sn / theta;
+  const float b = taylor ? 0.5f - theta2 / 24.0f : (1.0f - cs) / theta2;
+  const float c = taylor ? 1.0f / 6.0f - theta2 / 120.0f : (theta - sn) / (theta2 * theta);
+  const float K[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
+  float K2[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      K2[i][j] = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
+    }
+  }
+  float R[3][3], V[3][3];
+  rodrigues(K, K2, a, b, R);
+  rodrigues(K, K2, b, c, V);
+  float te[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) te[i] = V[i][0] * xi[3] + V[i][1] * xi[4] + V[i][2] * xi[5];
+
+  // T <- [R te; 0 1] T
+  float old[12];
+#pragma unroll
+  for (int e = 0; e < 12; ++e) old[e] = T[e];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s = R[i][0] * old[j] + R[i][1] * old[4 + j] + R[i][2] * old[8 + j];
+      T[4 * i + j] = j == 3 ? s + te[i] : s;
+    }
+  }
+}
+
 // Dynamic shared memory above the 48 KB default must be reserved first.
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, size_t smem) {

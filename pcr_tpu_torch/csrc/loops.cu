@@ -59,51 +59,6 @@ __device__ __forceinline__ void put_row(float4* rows, int k, const float* p, con
   rows[2 * k + 1] = make_float4(q[0], q[1], q[2], 0.0f);
 }
 
-// xi = H^-1 g for the SPD 6x6 H by Cholesky H = L L^T (torch.linalg.cholesky
-// then cholesky_solve, as utils/linalg.solve6_cholesky).
-__device__ void cholesky_solve6(const float (&H)[6][6], const float (&g)[6], float (&x)[6]) {
-  float L[6][6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    float s = H[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    L[j][j] = sqrtf(s);
-#pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
-      float t = H[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-      L[i][j] = t / L[j][j];
-    }
-  }
-  float y[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float s = g[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-#pragma unroll
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
-  }
-}
-
-// out = a K + b K^2 + I for K = skew(w), K^2 as the 3x3 product (utils/se3.py).
-__device__ __forceinline__ void rodrigues(const float (&K)[3][3], const float (&K2)[3][3],
-                                          float a, float b, float (&out)[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[i][j] = (i == j ? 1.0f : 0.0f) + a * K[i][j] + b * K2[i][j];
-  }
-}
-
 // One GNC step's pose update from the block's 16 sums S (sum l; sum l x, y,
 // z; sum l xx, yy, zz, xy, xz, yz; g): H, damping, Cholesky, se3_exp, and
 // T <- exp(xi) T on T's top three rows (R | t), row-major in shared memory.
@@ -127,46 +82,11 @@ __device__ void gnc_update(const float (&S)[kGncSums], bool enough, float* T) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) H[i][i] += lam;
   float x[6];
-  cholesky_solve6(H, g, x);
+  pcr::cholesky_solve6(H, g, x);
   float xi[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) xi[i] = enough ? -x[i] : 0.0f;
-
-  // se3_exp(xi): twist (omega, v)
-  const float wx = xi[0], wy = xi[1], wz = xi[2];
-  const float theta2 = wx * wx + wy * wy + wz * wz;
-  const float theta = sqrtf(fmaxf(theta2, 1e-32f));
-  const bool taylor = theta2 < 1e-12f;
-  const float sn = sinf(theta), cs = cosf(theta);
-  const float a = taylor ? 1.0f - theta2 / 6.0f : sn / theta;
-  const float b = taylor ? 0.5f - theta2 / 24.0f : (1.0f - cs) / theta2;
-  const float c = taylor ? 1.0f / 6.0f - theta2 / 120.0f : (theta - sn) / (theta2 * theta);
-  const float K[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
-  float K2[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) K2[i][j] = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
-  }
-  float R[3][3], V[3][3];
-  rodrigues(K, K2, a, b, R);
-  rodrigues(K, K2, b, c, V);
-  float te[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) te[i] = V[i][0] * xi[3] + V[i][1] * xi[4] + V[i][2] * xi[5];
-
-  // T <- [R te; 0 1] T
-  float old[12];
-#pragma unroll
-  for (int e = 0; e < 12; ++e) old[e] = T[e];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = R[i][0] * old[j] + R[i][1] * old[4 + j] + R[i][2] * old[8 + j];
-      T[4 * i + j] = j == 3 ? s + te[i] : s;
-    }
-  }
+  pcr::se3_exp_compose(xi, T);
 }
 
 __global__ void __launch_bounds__(kGncThreads)

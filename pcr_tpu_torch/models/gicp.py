@@ -13,6 +13,13 @@ Per Gauss-Newton iteration:
   5. convergence when |delta fitness| < relative_fitness and |delta rmse| <
      relative_rmse (Open3D's ICPConvergenceCriteria).
 
+The band loop (the default, ``_gicp_band_sorted``) runs steps 2-5 as kernel
+K10 around K1 (``ops/kernels/gicp_kernels``): on the card three launches and
+K1's an iteration, the sums reduced in a fixed order, T and the convergence
+state kept on the device; the host reads the flag once an iteration.  The
+brute and grid loops and ``gicp_loss_log`` run ``gicp_step`` in plain
+PyTorch.
+
 ``group=`` (pcr_tpu's ``axis_name``) is the point-sharded mode of
 ``parallel/point_sharding``: every rank passes the whole source and works on
 its block of the source rows, and the metric sums and the normal equations
@@ -36,6 +43,9 @@ import torch
 
 from ..ops import band_nn, eigen3, grid_nn
 from ..ops import knn as knn_ops
+from ..ops.kernels import gicp_kernels, nn_kernels
+from ..ops.kernels.gicp_kernels import inv3 as _inv3
+from ..ops.kernels.gicp_kernels import robust_weight
 from ..utils import collectives
 from ..utils import se3, trace
 from ..utils.cloud import Cloud, pad_rows
@@ -74,44 +84,6 @@ def covariances_from_normals(normals: torch.Tensor,
     eye = torch.eye(3, dtype=normals.dtype, device=normals.device)
     return eye.expand(normals.shape[:-1] + (3, 3)) - (1.0 - epsilon) * (
         normals[..., :, None] * normals[..., None, :])
-
-
-def _inv3(A: torch.Tensor) -> torch.Tensor:
-    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    A11 = e * i - f * h
-    A12 = c * h - b * i
-    A13 = b * f - c * e
-    A21 = f * g - d * i
-    A22 = a * i - c * g
-    A23 = c * d - a * f
-    A31 = d * h - e * g
-    A32 = b * g - a * h
-    A33 = a * e - b * d
-    det = a * A11 + b * A21 + c * A31
-    inv_det = 1.0 / torch.where(det.abs() > 1e-30, det, 1e-30)
-    adj = torch.stack(
-        [
-            torch.stack([A11, A12, A13], dim=-1),
-            torch.stack([A21, A22, A23], dim=-1),
-            torch.stack([A31, A32, A33], dim=-1),
-        ],
-        dim=-2,
-    )
-    return adj * inv_det[..., None, None]
-
-
-def robust_weight(loss: str, r: torch.Tensor, k: float) -> torch.Tensor:
-    """Robust-kernel weight as a function of the euclidean residual norm."""
-    if loss == "l2":
-        return torch.ones_like(r)
-    if loss == "l1":
-        return 1.0 / torch.clamp(r, min=1e-8)
-    if loss == "gm":  # Geman-McClure, Open3D GMLoss(k)
-        return k / torch.square(k + r * r)
-    raise ValueError(f"unknown loss {loss!r}")
 
 
 def _metrics(valid: torch.Tensor, d2: torch.Tensor, src_mask: torch.Tensor, group=None):
@@ -293,6 +265,8 @@ def _gicp_band_sorted(
     GICP covariance is exactly the plane-disk form I - (1-eps) n n^T, so
         C_q + R C_p R^T = 2I - (1-eps)(m m^T + u u^T),  u = R n_p,
     and the per-iteration gather is one packed (N, 8) row [q | m | 0 0].
+    Each iteration is K10's three launches around K1's sweep (in the loop
+    below); on CPU tensors their plain versions.
     """
     dev = source.device
     a = 1.0 - GICP_EPSILON
@@ -329,72 +303,62 @@ def _gicp_band_sorted(
                           torch.zeros((nr_pad, 2), dtype=torch.float32, device=dev)], dim=1)
 
     pts_m, n_m, mask_m = src_pts_s[mine], src_n_s[mine], src_mask_s[mine]
-
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    minus_eye = (-eye3).expand(pts_m.shape[0], 3, 3)
+    nr = index.ra_sorted.shape[0]
 
     def corr_step(T):
         p = se3.transform_points(T, pts_m)
         d2a, i_s = band_nn.nn1_band_query_sorted(index, p, mask_m, max_dist,
                                                  q_tile=q_tile, band=band)
-        pack = tgt_pack[i_s]                                  # (N, 8) one gather
-        q, m = pack[:, :3], pack[:, 3:6]
-        d = q - p
+        d = tgt_pack[i_s, :3] - p
         d2 = torch.sum(d * d, dim=1)
         valid = mask_m & (d2a < band_nn.BIG) & (d2 <= max_d2)
-        return p, m, d, d2, valid
+        return d2, valid
 
-    def step(T):
-        p, m, d, d2, valid = corr_step(T)
-        fitness, rmse, n_corr = _metrics(valid, d2, mask_m, group)
-        u = n_m @ T[:3, :3].T                                 # R n_p
-        C = 2.0 * eye3 - a * (m[:, :, None] * m[:, None, :] + u[:, :, None] * u[:, None, :])
-        M = _inv3(C)
-        r_norm = torch.sqrt(torch.clamp(d2, min=1e-16))
-        w = robust_weight(loss, r_norm, gm_k) * valid.to(torch.float32)
-        G = torch.cat([se3.skew(p), minus_eye], dim=-1)       # (N, 3, 6)
-        MG = M @ G
-        wG = G * w[:, None, None]
-        H = torch.einsum("nij,nik->jk", wG, MG)
-        g = torch.einsum("nij,ni->j", wG, (M @ d[:, :, None])[:, :, 0])
-        return _damped_step(H, g, n_corr, T, group), fitness, rmse, n_corr
-
-    # The loop reads the convergence flag on the host every iteration.  On
-    # the H100 that measured faster than reading it every 4 iterations and
-    # freezing converged state on the device (see PERF.md): registrations
-    # converge in 3-8 iterations per scale, so the extra iterations cost more
-    # than the reads, and the loop is bound by host launches either way.
-    # With a group the flag comes from the summed metrics, identical on every
-    # rank, so no rank leaves the others waiting in a collective.
-    T = T0
-    fit_prev, rmse_prev = -1.0, -1.0
+    # One iteration is K10 around K1 (ops/kernels/gicp_kernels): the rows
+    # moved and their tiles' slab starts, the sweep, the normal equations'
+    # and the metrics' sums over the rows (with a group, summed over its
+    # ranks), then the update of T and of the loop's state on the device.
+    # The host reads the convergence flag every iteration.  On the H100 that
+    # measured faster than reading it every 4 iterations and freezing
+    # converged state on the device (see PERF.md): registrations converge in
+    # 3-8 iterations per scale, so the extra iterations cost more than the
+    # reads.  The read also keeps the per-scale iteration counts pcr_tpu's,
+    # and with a group the flag comes from the summed metrics, identical on
+    # every rank, so the ranks leave the loop together and no rank leaves the
+    # others waiting in a collective.
+    T = T0.clone(memory_format=torch.contiguous_format)
+    state = gicp_kernels.initial_state(dev)
     iters = 0
     for _ in range(max_iteration):
-        T, fit, rmse, n_corr = step(T)
+        q_sp, starts = gicp_kernels.gicp_move(T, pts_m, mask_m, index, max_dist,
+                                              q_tile=q_tile, band=band)
+        d2k, rows = nn_kernels.nn1_band(starts, q_sp, index.r_sorted, q_tile=q_tile, band=band)
+        sums = gicp_kernels.gicp_rows(q_sp, n_m, mask_m, d2k, rows, tgt_pack, T, nr=nr,
+                                      max_d2=max_d2, a=a, loss=loss, gm_k=gm_k)
+        if group is not None:
+            sums = collectives.all_reduce_sum(sums.sum(dim=0, keepdim=True), group)
+        gicp_kernels.gicp_update(sums, T, state, relative_fitness, relative_rmse)
         iters += 1
-        done = (((fit - fit_prev).abs() < relative_fitness)
-                & ((rmse - rmse_prev).abs() < relative_rmse)) | (n_corr == 0)
-        fit_prev, rmse_prev = fit, rmse
         with trace.span("sync", site="gicp"):
-            stop = bool(done)
+            stop = bool(state[3])
         if stop:
             break
     trace.count("gicp.iterations", iters)
 
     # FINAL metrics over the un-capped band (the 1024 cap can truncate
     # in-radius correspondences at high density while the pose is unchanged);
-    # its own index groups every row, so with a group each rank queries them
-    # all and no sum is needed
+    # its own index (the same sorted refs, the queries sorted again) groups
+    # every row, so with a group each rank queries them all and no sum is
+    # needed
     band_f = _band_width(nr0, 2048)
     if band_f != band:
         p_f = se3.transform_points(T, src_pts_s)
-        index_f = band_nn.build_band_index(p_f, src_mask_s, target.points,
-                                           target.mask, band=band_f)
+        index_f = band_nn.requery_band_index(index, p_f, src_mask_s, band=band_f)
         d2f, _ = band_nn.nn1_band_query(index_f, p_f, src_mask_s, max_dist, band=band_f)
         valid = src_mask_s & (d2f < band_nn.BIG)
         fitness, rmse, n_corr = _metrics(valid, d2f, src_mask_s)
     else:
-        _, _, _, d2, valid = corr_step(T)
+        d2, valid = corr_step(T)
         fitness, rmse, n_corr = _metrics(valid, d2, mask_m, group)
     return RegistrationResult(T, fitness, rmse, n_corr,
                               torch.tensor(iters, dtype=torch.int32, device=dev))

@@ -32,10 +32,8 @@ import numpy as np
 import torch
 
 from .kernels import nn_kernels
+from .kernels.common import BIG, SENTINEL, axis_coord
 from ..utils.cloud import pad_rows
-
-BIG = 3.0e38
-SENTINEL = 1.0e6
 
 
 class BandIndex(NamedTuple):
@@ -48,11 +46,6 @@ class BandIndex(NamedTuple):
     axis: torch.Tensor       # 0-dim int64 — sweep axis
 
 
-def _axis_coord(pts: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
-    """pts[:, axis] without a host sync on ``axis``."""
-    return pts.gather(1, axis.view(1, 1).expand(pts.shape[0], 1))[:, 0]
-
-
 def _sq_f32(x: float) -> float:
     """x*x rounded as float32 arithmetic rounds it (the JAX package squares
     its f32 max_dist on device); a host float, so no device sync."""
@@ -63,19 +56,33 @@ def build_band_index(query, query_mask, ref, ref_mask, *, q_tile: int = 1024,
                      band: int = 2048) -> BandIndex:
     """Sort refs along the largest-extent axis; group queries by it.
     Both sorts are stable, as JAX's are."""
-    nr = ref.shape[0]
-    qpts = torch.where(query_mask[:, None], query, SENTINEL)
     rpts = torch.where(ref_mask[:, None], ref, SENTINEL)
     rmax = torch.where(ref_mask[:, None], ref, -3e38).amax(dim=0)
     rmin = torch.where(ref_mask[:, None], ref, 3e38).amin(dim=0)
     axis = torch.argmax(rmax - rmin)
-    qa = _axis_coord(qpts, axis)
-    ra = _axis_coord(rpts, axis)
-    q_order = torch.argsort(qa, stable=True)
+    ra = axis_coord(rpts, axis)
     r_order = torch.argsort(ra, stable=True)
-    nr_pad = (-(-nr // band) + 1) * band
-    r_sorted = pad_rows(rpts[r_order], nr_pad, SENTINEL)
-    return BandIndex(r_sorted, ra[r_order].contiguous(), r_order, q_order, axis)
+    return _group_queries(rpts[r_order], ra[r_order].contiguous(), r_order, axis, query,
+                          query_mask, band)
+
+
+def requery_band_index(index: BandIndex, query, query_mask, *, band: int) -> BandIndex:
+    """``build_band_index`` of the same refs for other queries and another
+    band, without sorting the refs again: their stable sort by the same keys
+    gives the same order, so every field equals the full build's."""
+    nr = index.ra_sorted.shape[0]
+    return _group_queries(index.r_sorted[:nr], index.ra_sorted, index.r_order, index.axis,
+                          query, query_mask, band)
+
+
+def _group_queries(r_sorted, ra_sorted, r_order, axis, query, query_mask,
+                   band: int) -> BandIndex:
+    """The index of the sorted refs ``r_sorted`` (nr, 3), padded for
+    ``band``, with the queries grouped by their coordinate along ``axis``."""
+    qa = axis_coord(torch.where(query_mask[:, None], query, SENTINEL), axis)
+    nr_pad = (-(-ra_sorted.shape[0] // band) + 1) * band
+    return BandIndex(pad_rows(r_sorted, nr_pad, SENTINEL), ra_sorted, r_order,
+                     torch.argsort(qa, stable=True), axis)
 
 
 def slab_starts(index: BandIndex, q_sp: torch.Tensor, max_dist: float,
@@ -86,25 +93,10 @@ def slab_starts(index: BandIndex, q_sp: torch.Tensor, max_dist: float,
     It is kept unless it misses some of the refs level with the tile (those
     between its lowest and highest real query along the axis) and a slab
     centred on them holds them all; then the centred slab is taken (module
-    docstring)."""
-    n_tiles = q_sp.shape[0] // q_tile
-    qa = _axis_coord(q_sp, index.axis).view(n_tiles, q_tile)
-    real = qa < SENTINEL / 2                 # masked and padding rows sit at SENTINEL
-    tile_min = qa.amin(dim=1)
-    tile_max = torch.where(real, qa, -BIG).amax(dim=1)
-    ra = index.ra_sorted
-    max_blk = max(index.r_sorted.shape[0] // band - 2, 0)
-    ours = torch.clamp(torch.searchsorted(ra, tile_min - max_dist) // band, 0, max_blk) * band
-    lo = torch.searchsorted(ra, tile_min)
-    hi = torch.searchsorted(ra, tile_max, right=True)
-    centred = torch.clamp((lo + hi) // 2 - band, 0, max_blk * band)
-
-    def level_rows(start):
-        return torch.clamp(torch.minimum(hi, start + 2 * band) - torch.maximum(lo, start), min=0)
-
-    level = hi - lo
-    centre = (level_rows(ours) < level) & (level_rows(centred) == level) & real.any(dim=1)
-    return torch.where(centre, centred, ours).to(torch.int32)
+    docstring).  One kernel launch on the card
+    (``nn_kernels.slab_starts``)."""
+    return nn_kernels.slab_starts(q_sp, index.r_sorted, index.ra_sorted, index.axis, max_dist,
+                                  q_tile=q_tile, band=band)
 
 
 def nn1_band_query(index: BandIndex, query, query_mask, max_dist: float, *,

@@ -31,6 +31,7 @@ _F = ctypes.c_float
 # every launching entry point returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "pcr_nn1_band": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "pcr_slab_starts": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P],
     "pcr_nn1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "pcr_outlier_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "pcr_survivor_moments": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -43,10 +44,15 @@ SIGNATURES = {
     "pcr_edge_blocks": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "pcr_assemble_band": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pcr_assemble_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "pcr_gicp_move": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "pcr_gicp_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _P, _P],
+    "pcr_gicp_update": [_P, _I, _P, _P, _F, _F, _P],
     # bytes of shared memory a block of K4, K5, K6 asks for at a band
     "pcr_moments_smem": [_I],
     "pcr_spfh_smem": [_I],
     "pcr_fpfh_smem": [_I],
+    # partial rows (blocks) of K10's gicp_rows over a number of rows
+    "pcr_gicp_rows_blocks": [_I],
 }
 
 

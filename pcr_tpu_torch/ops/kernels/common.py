@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 
 REAL_D2_MAX = 1.0e10   # any query-candidate pair with d2 above this involves a sentinel
-BIG = 3.0e38           # the d2 of a masked pair (ops/knn)
+BIG = 3.0e38           # the d2 of a masked pair (ops/knn, ops/band_nn)
+SENTINEL = 1.0e6       # the coordinates of a masked or padding row in the band sweep (ops/band_nn)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -18,6 +19,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"tensors must all be on the CPU or on one CUDA device, got "
                      f"{[str(t.device) for t in tensors]}")
+
+
+def axis_coord(pts: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """pts[:, axis] for a 0-dim device ``axis``, without a host sync."""
+    return pts.gather(1, axis.view(1, 1).expand(pts.shape[0], 1))[:, 0]
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

@@ -6,7 +6,11 @@ K1 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_band_pallas``.  Each tile
 of ``q_tile`` sorted queries scans one contiguous slab of ``2*band`` sorted
 reference rows starting at its element offset ``starts_el[tile]``; the result
 is the exact squared distance of the nearest slab row and its ABSOLUTE sorted
-row (first minimum on ties).
+row (first minimum on ties).  The starts come from ``slab_starts``, one
+block a tile on the card (``ops/band_nn.slab_starts``' rule: the tile's
+extent along the sweep axis, three binary searches in the refs' sorted axis
+coordinates, the centred-slab choice); K10's ``gicp_move`` takes its starts
+with the same device code.
 
 K7 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_pallas``: for every query
 the exact squared distance of the nearest row of the whole reference and that
@@ -54,7 +58,7 @@ from ...utils import trace
 from ...utils.cloud import pad_rows
 from . import build, common
 
-LAUNCHES = {"nn1_band": 0, "nn1": 0, "nn1_mutual": 0}
+LAUNCHES = {"nn1_band": 0, "slab_starts": 0, "nn1": 0, "nn1_mutual": 0}
 # K7's geometry (csrc/nn1.cu's kThreads, kQueries, kGroup, kMinBlocks: its
 # launch bounds hold the partial kernel to 64 registers, so 8 blocks fit an
 # SM), the waves of resident blocks it fills and the fewest rows of a ref
@@ -66,6 +70,67 @@ NN1_BLOCKS_PER_SM = 8
 NN1_WAVES = 1
 NN1_MIN_SPLIT_ROWS = 256
 MUTUAL_DIM = 33        # K11's feature width (csrc/mutual_nn.cu's kDim): FPFH
+
+
+def slab_limits(r: torch.Tensor, ra: torch.Tensor, axis: torch.Tensor,
+                band: int) -> tuple[int, int]:
+    """(nr, max_blk) of the sorted refs ``r`` (nr_pad, 3) f32 with their
+    axis coordinates ``ra`` (nr,) f32 along the 0-dim int64 ``axis``: a slab
+    starts at most max_blk bands in."""
+    nr = ra.shape[0]
+    common.check(ra, "ra", torch.float32, (nr,))
+    common.check(axis, "axis", torch.int64, ())
+    return nr, max(r.shape[0] // band - 2, 0)
+
+
+def slab_starts_reference(q: torch.Tensor, r: torch.Tensor, ra: torch.Tensor,
+                          axis: torch.Tensor, max_dist: float, *, q_tile: int,
+                          band: int) -> torch.Tensor:
+    """Plain PyTorch version of ``slab_starts``: the rule of
+    ``ops/band_nn.slab_starts``."""
+    n_tiles = q.shape[0] // q_tile
+    qa = common.axis_coord(q, axis).view(n_tiles, q_tile)
+    real = qa < common.SENTINEL / 2          # masked and padding rows sit at SENTINEL
+    tile_min = qa.amin(dim=1)
+    tile_max = torch.where(real, qa, -common.BIG).amax(dim=1)
+    max_blk = max(r.shape[0] // band - 2, 0)
+    ours = torch.clamp(torch.searchsorted(ra, tile_min - max_dist) // band, 0, max_blk) * band
+    lo = torch.searchsorted(ra, tile_min)
+    hi = torch.searchsorted(ra, tile_max, right=True)
+    centred = torch.clamp((lo + hi) // 2 - band, 0, max_blk * band)
+
+    def level_rows(start):
+        return torch.clamp(torch.minimum(hi, start + 2 * band) - torch.maximum(lo, start), min=0)
+
+    level = hi - lo
+    centre = (level_rows(ours) < level) & (level_rows(centred) == level) & real.any(dim=1)
+    return torch.where(centre, centred, ours).to(torch.int32)
+
+
+def slab_starts(q: torch.Tensor, r: torch.Tensor, ra: torch.Tensor, axis: torch.Tensor,
+                max_dist: float, *, q_tile: int, band: int) -> torch.Tensor:
+    """Each query tile's slab start in the sorted refs ``r`` (nr_pad, 3) f32,
+    whose axis coordinates along the 0-dim int64 ``axis`` are ``ra`` (nr,)
+    f32, for the sorted queries ``q`` (n_tiles * q_tile, 3) f32, masked and
+    padding rows at SENTINEL: (n_tiles,) int32, K1's ``starts_el``.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
+    rows = q.shape[0]
+    n_tiles = rows // q_tile
+    common.check_tiling(rows, q_tile, n_tiles, band, r.shape[0])
+    if not common.on_cuda(q, r, ra, axis):
+        return slab_starts_reference(q, r, ra, axis, max_dist, q_tile=q_tile, band=band)
+    common.check(q, "q", torch.float32, (rows, 3))
+    nr, max_blk = slab_limits(r, ra, axis, band)
+    starts = torch.empty(n_tiles, dtype=torch.int32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.pcr_slab_starts(q.data_ptr(), ra.data_ptr(), nr, axis.data_ptr(), n_tiles,
+                                  q_tile, band, max_blk, max_dist, starts.data_ptr(),
+                                  common.stream_of(q))
+    build.check_launch("slab_starts", err)
+    LAUNCHES["slab_starts"] += 1
+    trace.shape("slab_starts", n_tiles, rows, nr, q_tile, band)
+    return starts
 
 
 def nn1_band_reference(starts_el: torch.Tensor, q: torch.Tensor, r: torch.Tensor,

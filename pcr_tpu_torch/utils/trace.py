@@ -56,9 +56,11 @@ class Snapshot(NamedTuple):
 
 
 def _launch_counters() -> dict[str, int]:
-    from ..ops.kernels import feature_kernels, graph_kernels, loop_kernels, nn_kernels
+    from ..ops.kernels import (feature_kernels, gicp_kernels, graph_kernels, loop_kernels,
+                               nn_kernels)
 
-    return {k: v for m in (nn_kernels, feature_kernels, loop_kernels, graph_kernels)
+    return {k: v for m in (nn_kernels, feature_kernels, loop_kernels, graph_kernels,
+                           gicp_kernels)
             for k, v in m.LAUNCHES.items()}
 
 

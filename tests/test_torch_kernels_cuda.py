@@ -1,4 +1,4 @@
-"""Kernels K1-K9, K11 and K12 on the card against their plain PyTorch
+"""Kernels K1-K12 on the card against their plain PyTorch
 versions on the same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
@@ -10,12 +10,12 @@ import pytest
 import torch
 
 import chip_smoke
-from pcr_tpu_torch.models import fgr
+from pcr_tpu_torch.models import fgr, gicp, multiscale
 from pcr_tpu_torch.models.global_refine import pose_graph
-from pcr_tpu_torch.ops import knn, preprocess
-from pcr_tpu_torch.ops.kernels import (feature_kernels, graph_kernels, loop_kernels,
-                                       nn_kernels)
-from pcr_tpu_torch.utils import cloud
+from pcr_tpu_torch.ops import band_nn, knn, preprocess
+from pcr_tpu_torch.ops.kernels import (feature_kernels, gicp_kernels, graph_kernels,
+                                       loop_kernels, nn_kernels)
+from pcr_tpu_torch.utils import cloud, se3, trace
 from pcr_tpu_torch.utils.cloud import pad_rows
 
 
@@ -533,3 +533,153 @@ def test_mutual_and_edge_kernels_never_fall_back(cuda_rng, monkeypatch):
     args = _edge_args(graph, torch.ones(5, device=dev))
     with pytest.raises(TypeError):
         graph_kernels.edge_blocks(*(x.double() if x.is_floating_point() else x for x in args))
+
+
+def _k10_move_case(rng, kind: str, q_tile: int, n: int):
+    """gicp_move's arguments on the card: a wavy surface of n source rows
+    moved against a target of 1.4 n rows; ``crowded`` searches 3 m on it
+    (the in-radius band overflows, so some tiles take the centred slab),
+    ``sparse_tail`` masks 80% of the source (tiles with no real row)."""
+    dev = torch.device("cuda")
+
+    def surface(m, extent):
+        xy = rng.uniform(-extent, extent, size=(m, 2))
+        z = 0.4 * np.sin(1.3 * xy[:, :1]) + 0.3 * np.cos(0.9 * xy[:, 1:2])
+        return np.concatenate([xy, z], axis=1).astype(np.float32)
+
+    cap = -(-n // q_tile) * q_tile
+    src = cloud.from_numpy(surface(n, 5.0 * (n / 2500) ** 0.5), cap, device=dev)
+    if kind == "sparse_tail":
+        src.mask[:n] = torch.as_tensor(rng.random(n) >= 0.8, device=dev)
+    m = int(1.4 * n)
+    tgt = cloud.from_numpy(surface(m, 6.0 * (n / 2500) ** 0.5), -(-m // 1024) * 1024,
+                           device=dev)
+    T = se3.se3_exp(torch.tensor([0.0, 0.0, 0.02, 0.05, -0.03, 0.0], device=dev))
+    band = gicp.iteration_band(tgt.capacity)
+    index = band_nn.build_band_index(se3.transform_points(T, src.points), src.mask,
+                                     tgt.points, tgt.mask, band=band)
+    pts = src.points[index.q_order].contiguous()
+    mask = src.mask[index.q_order].contiguous()
+    return (T, pts, mask, index, 3.0 if kind == "crowded" else 0.5), dict(q_tile=q_tile,
+                                                                          band=band)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["surface", "crowded", "sparse_tail"])
+@pytest.mark.parametrize("q_tile,n", [(1024, 21504), (256, 2560), (64, 2560)])
+def test_gicp_move_kernel_starts_bit_equal(cuda_rng, kind, q_tile, n):
+    """K10's gicp_move: its starts, and those of the band sweep's slab_starts
+    kernel (band_nn.slab_starts on the card), bit-equal to the rule's in
+    PyTorch (nn_kernels.slab_starts_reference) on its own q_sp (the centred
+    slab taken for some tiles where the in-radius band overflows,
+    ``crowded``), its q_sp within chip_smoke.MAX_K10_Q of the plain
+    version's; one launch a call."""
+    args, kw = _k10_move_case(cuda_rng, kind, q_tile, n)
+    _, _, _, index, max_dist = args
+    before = dict(gicp_kernels.LAUNCHES, **nn_kernels.LAUNCHES)
+    q_k, s_k = gicp_kernels.gicp_move(*args, **kw)
+    s_only = band_nn.slab_starts(index, q_k, max_dist, q_tile, kw["band"])
+    torch.cuda.synchronize()
+    assert gicp_kernels.LAUNCHES["gicp_move"] == before["gicp_move"] + 1
+    assert nn_kernels.LAUNCHES["slab_starts"] == before["slab_starts"] + 1
+    s_rule = nn_kernels.slab_starts_reference(q_k, index.r_sorted, index.ra_sorted, index.axis,
+                                              max_dist, **kw)
+    assert torch.equal(s_k, s_rule) and torch.equal(s_only, s_rule)
+    q_p, _ = gicp_kernels.gicp_move_reference(*args, **kw)
+    assert float((q_k - q_p).abs().max()) <= chip_smoke.MAX_K10_Q
+    mins = q_k[:, index.axis].view(-1, q_tile).amin(dim=1)
+    top = max(index.r_sorted.shape[0] // kw["band"] - 2, 0)
+    ours = torch.clamp(torch.searchsorted(index.ra_sorted, mins - max_dist) // kw["band"], 0,
+                       top) * kw["band"]
+    if kind == "crowded":
+        assert bool((s_k != ours).any())
+
+
+@pytest.fixture(scope="module")
+def gicp_pairs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return {kind: chip_smoke.gicp_pair(kind, torch.device("cuda"))
+            for kind in chip_smoke.GICP_PAIRS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["l2", "l1", "gm"])
+@pytest.mark.parametrize("kind", chip_smoke.GICP_PAIRS)
+@pytest.mark.parametrize("scale", [0, 4])
+def test_gicp_rows_update_kernels_within_rounding(gicp_pairs, kind, loss, scale):
+    """K10 on the first iteration of a pair's coarsest and finest band GICP
+    (chip_smoke.check_k10): gicp_move's starts bit-equal to the rule's,
+    gicp_rows' sums within summation rounding of the plain version's (the
+    counts exactly), gicp_update's T within 1e-6 of the plain update, two
+    runs bit for bit."""
+    src, tgt, T0, _ = gicp_pairs[kind]
+    dist = multiscale.max_correspondence_distances(multiscale.create_scales(5))[scale]
+    chip_smoke.check_k10(f"{kind} scale {scale} {loss}",
+                         chip_smoke.k10_inputs(src[scale], tgt[scale], dist, T0, loss=loss))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", chip_smoke.GICP_PAIRS)
+def test_band_mgicp_kernels_against_plain_loop(gicp_pairs, kind):
+    """A 5-scale band M-GICP through K10 lands within stage 2's limits (12 mm,
+    120 mdeg) of the same loop on K10's plain versions, with equal
+    iterations at every scale; two runs give the same bits; K10's update
+    launches once an iteration (launches.gicp_update equals the counter
+    gicp.iterations); an iteration launches at most 5 device operations
+    (K10's three, K1, the flag's copy), counted by the profiler as the
+    difference between 11 and 1 iterations of the finest scale."""
+    src, tgt, T0, _ = gicp_pairs[kind]
+    trace.reset()
+    trace.enable()
+    try:
+        res = multiscale.multiscale_gicp_pyramids(src, tgt, T0, n_scales=5)
+        torch.cuda.synchronize()
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.reset()
+    res2 = multiscale.multiscale_gicp_pyramids(src, tgt, T0, n_scales=5)
+    with chip_smoke.plain_loops():
+        res_p = multiscale.multiscale_gicp_pyramids(src, tgt, T0, n_scales=5)
+    its, its_p = res.scale_iterations.tolist(), res_p.scale_iterations.tolist()
+    assert torch.equal(res.transformation, res2.transformation)
+    assert res2.scale_iterations.tolist() == its
+    assert snap.counters["launches.gicp_update"] == snap.counters["gicp.iterations"] == sum(its)
+    assert snap.counters["launches.gicp_rows"] == snap.counters["launches.gicp_move"] == sum(its)
+    e_m, e_deg = chip_smoke.pose_error(res.transformation.double().cpu().numpy(),
+                                       res_p.transformation.double().cpu().numpy())
+    assert e_m * 1e3 <= 12.0 and e_deg * 1e3 <= 120.0, (e_m, e_deg)
+    assert its == its_p
+    dist = multiscale.max_correspondence_distances(multiscale.create_scales(5))[4]
+    per_iteration = chip_smoke.iteration_device_ops(src[4], tgt[4], dist, T0)
+    assert per_iteration <= 5, per_iteration
+
+
+@pytest.mark.cuda
+def test_gicp_kernels_never_fall_back(cuda_rng, monkeypatch):
+    """With K10's and the slab starts' plain versions made to raise, the
+    band GICP still runs on CUDA tensors, one gicp_move, gicp_rows and
+    gicp_update an iteration, its final metrics' slab starts through the
+    band sweep's kernel; an unknown loss raises."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("gicp_move_reference", "gicp_rows_reference", "gicp_update_reference"):
+        monkeypatch.setattr(gicp_kernels, name, refuse)
+    monkeypatch.setattr(nn_kernels, "slab_starts_reference", refuse)
+    (T, pts, mask, index, _), _ = _k10_move_case(cuda_rng, "surface", 256, 2560)
+    dev = torch.device("cuda")
+    src = cloud.from_numpy(pts.cpu().numpy(), 2560, device=dev)
+    tgt = cloud.from_numpy(pts.cpu().numpy() + np.float32([0.05, 0.0, 0.0]), 2560, device=dev)
+    for c in (src, tgt):
+        c.normals = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(2560, 3).contiguous()
+    before = dict(gicp_kernels.LAUNCHES, **nn_kernels.LAUNCHES)
+    res = gicp.registration_gicp(src, tgt, 0.5, np.eye(4, dtype=np.float32), q_tile=256)
+    torch.cuda.synchronize()
+    its = int(res.iterations)
+    for name in ("gicp_move", "gicp_rows", "gicp_update"):
+        assert gicp_kernels.LAUNCHES[name] == before[name] + its
+    assert nn_kernels.LAUNCHES["slab_starts"] == before["slab_starts"] + 1
+    with pytest.raises(ValueError, match="unknown loss"):
+        gicp.registration_gicp(src, tgt, 0.5, np.eye(4, dtype=np.float32), loss="huber")
