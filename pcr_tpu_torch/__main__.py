@@ -204,9 +204,11 @@ def _run(args, device) -> int:
     elif args.command == "full":
         metrics = pipeline.PairMetrics()
         clouds = load()
-        if mesh is None and cfg.batch_size <= 1:
-            # stage 2 streams behind stage 1 in one window (pipeline.run_full)
-            out = pipeline.run_full(cfg, clouds=clouds, n=n, metrics=metrics)
+        if (mesh is None and cfg.batch_size <= 1
+                or mesh is not None and mesh.axis_names == ("pairs",)):
+            # without a mesh stage 2 streams behind stage 1 in one window; on a
+            # pair mesh the staged runners, then stage 3 on rank 0 (run_full)
+            out = pipeline.run_full(cfg, clouds=clouds, n=n, metrics=metrics, mesh=mesh)
             results = out["stage3"]
         else:
             rel1 = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=n, metrics=metrics, mesh=mesh)

@@ -23,7 +23,8 @@ over all of them.
 
 Device meshes (``parallel/``, one process a device): ``mesh=`` of the staged
 runners shards the pairs over the mesh's 'pairs' axis (and, on a 2-D mesh,
-each pair's source rows over 'points' in stage 2), ``point_mesh=`` of
+each pair's source rows over 'points' in stage 2), ``mesh=`` of ``run_full``
+(a pair mesh) runs them and then stage 3 on rank 0, ``point_mesh=`` of
 ``run_pair`` shards the pair's source rows.  Every rank runs the runner on
 the same inputs and returns the same poses; only rank 0 writes pose files,
 metrics and checkpoints, and every rank waits for the others before it
@@ -645,9 +646,10 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
 @trace.spanned("run_full")
 def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
              metrics: PairMetrics | None = None,
-             methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph")) -> dict:
+             methods=("LUM", "SLERP", "SLERP_LUM", "pose_graph"), mesh=None) -> dict:
     """Stages 1 -> 3, with stage 2 streamed behind stage 1 in one window:
-    the main path.
+    the main path.  With a pair ``mesh`` the staged runners, sharded over it
+    (``_run_full_mesh``).
 
     Per pair: FGR on the two scans' cached banded (or selection) features,
     then M-GICP over their cached pyramids seeded from the FGR pose as it
@@ -665,6 +667,8 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
     if cfg.stage1_features not in ("banded", "selection"):
         raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
+    if mesh is not None:
+        return _run_full_mesh(cfg, clouds, n, metrics, methods, mesh)
     if clouds is None:
         clouds = _load_circuit_clouds(cfg, range(n))
     metrics = metrics if metrics is not None else PairMetrics()
@@ -781,6 +785,32 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
         save_metrics()
     stage3 = run_stage3_global(cfg, relative_poses=out2, clouds=clouds, n=n, methods=methods)
     return {"stage1": out1, "stage2": out2, "stage3": stage3}
+
+
+def _run_full_mesh(cfg: PipelineConfig, clouds, n: int, metrics: PairMetrics | None,
+                   methods, mesh) -> dict:
+    """``run_full`` on a pair mesh (``parallel.mesh.make_pair_mesh``): stage 1
+    and stage 2 sharded over its 'pairs' axis (``run_stage1_fgr(mesh=)``,
+    ``run_stage2_mgicp(mesh=)``), then stage 3, unsharded as in pcr_tpu, on
+    rank 0 (span ``mesh.stage3``), whose result every rank receives.  Every
+    rank returns the same poses and gathers every pair's metrics rows; only
+    rank 0 writes files.  A (pairs, points) mesh is refused: its stage 1 is
+    not sharded over 'points', so the CLI runs the staged runners on it."""
+    lead = _writes(mesh)    # refuses a mesh that is not a Mesh
+    if mesh.axis_names != ("pairs",):
+        raise ValueError(f"run_full takes a pair mesh (the one axis 'pairs'), got {mesh}")
+    if clouds is None:
+        clouds = _load_circuit_clouds(cfg, range(n))
+    metrics = metrics if metrics is not None else PairMetrics()
+    rel1 = run_stage1_fgr(cfg, clouds=clouds, n=n, metrics=metrics, mesh=mesh)
+    rel2 = run_stage2_mgicp(cfg, init_poses=rel1, clouds=clouds, n=n, metrics=metrics, mesh=mesh)
+    stage3 = None
+    if lead:
+        with trace.span("mesh.stage3"):
+            stage3 = run_stage3_global(cfg, relative_poses=rel2, clouds=clouds, n=n,
+                                       methods=methods)
+    stage3 = collectives.broadcast_object(stage3, mesh.group("pairs"))
+    return {"stage1": rel1, "stage2": rel2, "stage3": stage3}
 
 
 @trace.spanned("stage3.information")

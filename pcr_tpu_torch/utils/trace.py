@@ -74,6 +74,12 @@ def disable() -> None:
     _on = False
 
 
+def enabled() -> bool:
+    """True while the tracer is on: the one check of a site that must
+    compute a span's attribute before it opens the span."""
+    return _on
+
+
 def reset() -> None:
     """Forget every span, counter and shape; call it with no span open."""
     _spans.clear()

@@ -7,8 +7,9 @@ tests/test_parallel.py).
 
 The port's side runs in spawned ranks (tests/torch_parallel_worker.py, which
 imports no JAX): one spawn of 4 ranks for every function of the four
-modules and stage 2 on a (2, 2) mesh, one of 2 ranks for the runners, the
-point-sharded grid GICP and ``run_pair`` and the CLI.  Both start before the
+modules, stage 2 on a (2, 2) mesh and ``run_full`` on a pair mesh of 4, one
+of 2 ranks for the runners, the point-sharded grid GICP and ``run_pair`` and
+the CLI.  Both start before the
 parent computes the references, so the two overlap.  Every group has a 90 s
 collective timeout and a FileStore rendezvous under ``tmp_path``; the parent
 kills the ranks when one fails or when they overrun.  ~75 s on one worker
@@ -24,7 +25,9 @@ pose-graph nodes 5e-4; the runners on a pair mesh 1e-6 in stage 2 (each
 pair runs the same operations as in the run without a mesh, so 0 is
 expected)
 and 1e-4 in stage 1 (a chunk's GNC is batched over a rank's block, not over
-the chunk); stage 2 on a (2, 2) mesh 5e-4.
+the chunk); stage 2 on a (2, 2) mesh 5e-4; ``run_full`` on a pair mesh bit
+for bit the staged runners on the same mesh (the same operations), its stage
+2 within nclt-seq32's pose limits of the benchmark's reference ICP.
 
 Against pcr_tpu's sharded forms, the bounds the port's unsharded tests hold
 the same functions to: GICP 1e-4 (tests/test_torch_gicp.py, band, brute
@@ -42,6 +45,7 @@ import contextlib
 import functools
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -79,6 +83,7 @@ PAIR = dict(dataset="Courtyard", voxel_size=0.2, mgicp_scales=2, mgicp_iteration
 # (_assert_real_rows_on_every_rank).
 Q_TILE = 64
 BIG = 2048      # capacity of the circuit of stage 2 and run_pair
+N_FULL = 8      # scans of run_full's circuit on the pair mesh of 4
 
 
 def _leaves(c, prefix=""):
@@ -160,7 +165,11 @@ def _jax_inputs(tmp) -> tuple[dict, dict]:
     init[1][:3, 3] = [50.0, 50.0, 50.0]          # the retry ladder's pair
     x["stage2"] = dict(scans=big, init=init, capacity=BIG, cfg=STAGE2,
                        out=str(tmp / "stage2_2d"))
-    return x, j, dict(scans=scans, gt=gt, big=big, big_gt=big_gt, init=init)
+    full, full_gt = bumpy_circuit(np.random.default_rng(0), n_clouds=N_FULL, n=2000, step=0.3)
+    x["full"] = dict(scans=full, capacity=2048, cfg=dict(STAGE2, **SMALL),
+                     out=str(tmp / "run_full"))
+    return x, j, dict(scans=scans, gt=gt, big=big, big_gt=big_gt, init=init, full=full,
+                      full_gt=full_gt)
 
 
 def _write_dataset(root, scans, gt, name="Facade"):
@@ -810,3 +819,72 @@ def test_cli_stage3_ignores_devices(run):
         want = t_poses.load_absolute_poses(
             str(run["tmp"] / "stage3_single" / f"absolute_poses_{m}" / "Facade"), N)
         np.testing.assert_allclose(got, want, atol=1e-9, err_msg=m)
+
+
+# ---------------------------------------------------------------------------
+# run_full on a pair mesh
+# ---------------------------------------------------------------------------
+
+METHODS = ["LUM", "SLERP", "SLERP_LUM", "pose_graph"]
+
+
+def test_run_full_on_a_pair_mesh(run):
+    """run_full(mesh=make_pair_mesh(4)) over an 8-scan circuit (B = 4, one
+    pair a rank a chunk in stage 1, two pairs a rank in stage 2): every rank
+    returns the same stage 1, 2 and 3 and the same metrics rows, bit for bit
+    what the CLI's staged branch gave on the same mesh before run_full took
+    one (stage 1, stage 2, then stage 3 on rank 0)."""
+    outs = [o["run_full"] for o in run["out4"]]
+    for key in ("stage1", "stage2", "stage3", "rows"):
+        _same_on_every_rank(outs, key)
+    got, staged = outs[0], outs[0]["staged"]
+    for stage in ("stage1", "stage2"):
+        assert got[stage].shape == (N_FULL, 4, 4)
+        np.testing.assert_array_equal(got[stage], staged[stage], err_msg=stage)
+    assert sorted(got["stage3"]) == sorted(staged["stage3"]) == METHODS
+    for m in METHODS:
+        np.testing.assert_array_equal(got["stage3"][m], staged["stage3"][m], err_msg=m)
+    _check_rows(got["rows"], staged["rows"], ("stage", "fitness", "rmse", "status",
+                                              "scale_iterations", "gate_fitness"))
+
+
+def test_run_full_on_a_pair_mesh_writes_on_rank_0(run):
+    """Only rank 0 wrote pose files (stage 1's relative poses, stage 2's
+    relative and absolute ones, one absolute file a stage-3 method) and
+    opened the span ``mesh.stage3``; every rank's ``collective`` spans add up
+    to its counters ``collective.calls`` and ``collective.bytes``."""
+    outs = [o["run_full"] for o in run["out4"]]
+    assert outs[0]["writes"] == {"save_relative_circuit": 2, "save_absolute_poses": 5}
+    assert all(o["writes"] == {} for o in outs[1:])
+    assert ["mesh.stage3" in o["spans"] for o in outs] == [True, False, False, False]
+    for o in outs:
+        c = o["collective"]
+        assert c["counters"] == {"collective.calls": c["calls"], "collective.bytes": c["bytes"]}
+        assert {"all_gather_rows", "all_gather_objects", "broadcast_object",
+                "barrier"} <= set(c["ops"]), c["ops"]
+        assert c["bytes"] > 0
+
+
+def test_run_full_on_a_pair_mesh_against_the_reference(run):
+    """The pair mesh's stage-2 poses within nclt-seq32's ``gicp_mm`` and
+    ``gicp_mdeg`` limits of the benchmark's plain reference, point-to-plane
+    ICP from the truth at the cell's check settings."""
+    from portbench import reference as ref
+    from portbench import work
+
+    root = Path(__file__).resolve().parent.parent
+    limits = json.loads((root / "portbench" / "limits" / "nclt-seq32.json").read_text())
+    scans, gt = run["circ"]["full"], run["circ"]["full_gt"]
+    got = run["out4"][0]["run_full"]["stage2"]
+    for k in range(N_FULL):
+        s, t = t_pipe.circuit_pairs(N_FULL)[k]
+        T_ref = ref.icp(scans[s], scans[t], gt[k], voxel=0.1, max_dist=0.2)
+        mm, mdeg = work.pose_gap(got[k], T_ref)
+        assert mm <= limits["gicp_mm"] and mdeg <= limits["gicp_mdeg"], (k, mm, mdeg)
+
+
+def test_run_full_refuses_a_2d_mesh(run):
+    """run_full on a (pairs, points) mesh raises on every rank, before any
+    collective, naming the pair mesh it takes."""
+    refusals = [o["run_full"]["refusal"] for o in run["out4"]]
+    assert all(r is not None and "pair mesh" in r for r in refusals), refusals

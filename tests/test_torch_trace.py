@@ -4,7 +4,8 @@ no-op and records nothing; on, a small circuit through ``run_full`` gives one
 and LM iteration counters the rows and the optimiser report, every span
 inside its root, and the same poses and metrics rows as with it off; a span's
 clock is the profiler's; ``LAUNCHES`` stays the launch counter; ``--trace
-FILE`` writes the spans as Chrome trace-event JSON.  On the card (``cuda``
+FILE`` writes the spans as Chrome trace-event JSON; on 2 gloo ranks each
+collective is one span with the payload it sends.  On the card (``cuda``
 marker) the tracer adds no device read.
 
 This file imports neither jax nor pcr_tpu, so it also runs on the card:
@@ -16,6 +17,7 @@ import collections
 import contextlib
 import io
 import json
+import pickle
 import re
 from pathlib import Path
 
@@ -243,6 +245,42 @@ def test_cli_trace_file(tmp_path, monkeypatch):
     assert doc["otherData"]["counters"]["gicp.iterations"] == names["sync"] - 3
     assert "launches.nn1_band" in doc["otherData"]["counters"]
     assert not trace._on
+
+
+OBJECT = {"poses": np.arange(32.0).reshape(2, 4, 4), "rows": [{"stage": "mgicp", "src": 1}]}
+ROWS = 5
+
+
+@pytest.fixture(scope="module")
+def collective_ranks(tmp_path_factory):
+    """Two gloo ranks (tests/torch_parallel_worker.py), each collective
+    traced alone."""
+    from tests import torch_parallel_worker as worker
+
+    ranks = worker.start(2, "collectives", {"ops": ["all_gather_rows", "all_gather_objects",
+                                                    "broadcast_object"],
+                                            "rows": ROWS, "object": OBJECT},
+                         tmp_path_factory.mktemp("collectives"), limit_s=120)
+    try:
+        return ranks.join()
+    finally:
+        ranks.kill()
+
+
+@pytest.mark.parametrize("op, payloads", [
+    ("all_gather_rows", [ROWS * 3 * 4] * 2),
+    ("all_gather_objects", [len(pickle.dumps(OBJECT))] * 2),
+    ("broadcast_object", [len(pickle.dumps(OBJECT)), 0]),
+])
+def test_collective_spans_count_the_payload(collective_ranks, op, payloads):
+    """On 2 gloo ranks a traced collective is one span ``collective`` with
+    its ``op`` and, as ``bytes``, the payload this rank sends (a (5, 3)
+    float32 block, an object's pickled size, nothing for a broadcast's
+    receiver); the counters ``collective.calls`` and ``collective.bytes``
+    say the same."""
+    for out, payload in zip(collective_ranks, payloads):
+        assert out[op]["spans"] == [("collective", {"op": op, "bytes": payload})]
+        assert out[op]["counters"] == {"collective.calls": 1, "collective.bytes": payload}
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ import jax or pcr_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -132,7 +133,8 @@ def _counting(module, names, counts):
 
 def task_functions(x: dict) -> dict:
     """Every public function of parallel/ on 4 ranks: pair mesh (4), point
-    mesh (4), (pairs 2, points 2) mesh; then stage 2 on the 2-D mesh."""
+    mesh (4), (pairs 2, points 2) mesh; then stage 2 on the 2-D mesh and
+    run_full on the pair mesh."""
     from pcr_tpu_torch.models.fgr import FgrOptions
     from pcr_tpu_torch.parallel import distributed_pg, mesh, pair_sharding, point_sharding
     from pcr_tpu_torch.utils import collectives as coll
@@ -220,6 +222,7 @@ def task_functions(x: dict) -> dict:
     out["pg_global"] = dict(nodes=glob.nodes.numpy(), edge_mask=glob.edge_mask.numpy())
     out["stage2_2d"] = _stage2(x["stage2"], m2)
     out["refusals"] = _refusals(pm, qm, m2, src, tgt, p["T0"], x)
+    out["run_full"] = _run_full(x["full"], pm, m2)
     return out
 
 
@@ -269,6 +272,53 @@ def _stage2(x: dict, m):
     return dict(poses=poses, rows=metrics.rows, writes=dict(counts))
 
 
+def _run_full(x: dict, pm, m2) -> dict:
+    """run_full(mesh=) on the pair mesh over ``x``'s circuit, traced, this
+    rank's pose-file writes counted; then the CLI's staged branch from before
+    run_full took a mesh, on the same mesh (stage 1, stage 2, stage 3 on rank
+    0 alone); and run_full on the (pairs, points) mesh, which is refused."""
+    from pcr_tpu_torch import pipeline
+    from pcr_tpu_torch.utils import cloud as cloud_mod
+    from pcr_tpu_torch.utils import trace
+
+    counts: dict = {}
+    _counting(pipeline.poses_io, ("save_relative_circuit", "save_absolute_poses"), counts)
+    clouds = [cloud_mod.from_numpy(s, x["capacity"], device="cpu") for s in x["scans"]]
+    n = len(clouds)
+    cfg = pipeline.PipelineConfig(output_root=x["out"] + "/run_full", **x["cfg"])
+    metrics = pipeline.PairMetrics()
+    trace.reset()
+    trace.enable()
+    try:
+        full = pipeline.run_full(cfg, clouds=clouds, n=n, metrics=metrics, mesh=pm)
+    finally:
+        trace.disable()
+    snap = trace.snapshot()
+    writes = dict(counts)
+    staged_cfg = dataclasses.replace(cfg, output_root=x["out"] + "/staged")
+    staged = pipeline.PairMetrics()
+    rel1 = pipeline.run_stage1_fgr(staged_cfg, clouds=clouds, n=n, metrics=staged, mesh=pm)
+    rel2 = pipeline.run_stage2_mgicp(staged_cfg, init_poses=rel1, clouds=clouds, n=n,
+                                     metrics=staged, mesh=pm)
+    stage3 = (pipeline.run_stage3_global(staged_cfg, relative_poses=rel2, clouds=clouds, n=n)
+              if dist.get_rank() == 0 else {})
+    try:
+        pipeline.run_full(cfg, clouds=clouds, n=n, mesh=m2)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    collective = [s[5] for s in snap.spans if s[0] == "collective"]
+    return dict(
+        stage1=full["stage1"], stage2=full["stage2"], stage3=full["stage3"], rows=metrics.rows,
+        writes=writes, spans=sorted({s[0] for s in snap.spans}),
+        collective=dict(ops=sorted({a["op"] for a in collective}),
+                        calls=len(collective), bytes=sum(a["bytes"] for a in collective),
+                        counters={k: v for k, v in snap.counters.items()
+                                  if k.startswith("collective.")}),
+        staged=dict(stage1=rel1, stage2=rel2, stage3=stage3, rows=staged.rows),
+        refusal=refusal)
+
+
 def task_pipeline(x: dict) -> dict:
     """The runners, the grid GICP on a points axis of 2 and the CLI on 2
     ranks."""
@@ -314,4 +364,34 @@ def task_pipeline(x: dict) -> dict:
     return out
 
 
-TASKS = {"functions": task_functions, "pipeline": task_pipeline}
+def task_collectives(x: dict) -> dict:
+    """Each collective of ``x["ops"]`` alone with the tracer on: all_gather_rows
+    of a (rows, 3) float32 block, all_gather_objects and broadcast_object of
+    ``x["object"]``; the spans (name, attributes) and the counters
+    ``collective.*`` of each."""
+    from pcr_tpu_torch.utils import collectives as coll
+    from pcr_tpu_torch.utils import trace
+
+    calls = {
+        "all_gather_rows": lambda: coll.all_gather_rows(
+            torch.full((x["rows"], 3), float(dist.get_rank()))),
+        "all_gather_objects": lambda: coll.all_gather_objects(x["object"]),
+        "broadcast_object": lambda: coll.broadcast_object(x["object"]),
+    }
+    out = {}
+    for op in x["ops"]:
+        trace.reset()
+        trace.enable()
+        try:
+            calls[op]()
+        finally:
+            trace.disable()
+        snap = trace.snapshot()
+        out[op] = dict(spans=[(s[0], s[5]) for s in snap.spans],
+                       counters={k: v for k, v in snap.counters.items()
+                                 if k.startswith("collective.")})
+    return out
+
+
+TASKS = {"functions": task_functions, "pipeline": task_pipeline,
+         "collectives": task_collectives}
