@@ -194,6 +194,20 @@ Phases (any failure ends the run with a non-zero exit code):
                PyTorch on every shape phase 18's run gave it (the GICP's
                final metrics, the gate, stage 3's information matrices,
                stage 1's features), twice bit for bit.
+ 24. knn kernel — K13 (exact k-NN, csrc/knn.cu) against its plain
+               version on knn_exact's arguments: the selection features'
+               k = 200 self-kNN (exclude_self) of phase 22's first and last
+               Facade scans in the 90112-row bucket (44.6k and 83.6k valid)
+               and of the NCLT circuit's scan 0 in its 24576-row bucket, a
+               query cloud other than the refs (the last Facade scan against
+               the first half of its bucket), viz's k = 1, and every
+               knn_exact call of the unfused pyramid
+               (build_pyramid(fused=False): k = 30 outlier
+               statistics and k = 20 normals at the 5 scales): d2 and
+               indices equal, twice bit for bit, sampled rows within FP32
+               rounding of the float64 k smallest; kernel ms, plain ms,
+               bound, and the former tiled torch.topk path (knn_tiled) at the
+               Facade, NCLT and finest pyramid shapes.
 The line before the last is the kernels' JSON record (``launches``: K1-K6,
 K8-K12 and slab_starts from the CLI's ``full`` run of phase 18, K7 from the
 brute GICP; ``max_abs_err`` of K4 over the cloud's real rows, of K8 over
@@ -214,12 +228,15 @@ and one compare (9 operations) per (query, candidate) pair and the per-pair
 work of the pairs this run's data keeps (K8: 70 operations a kept row a
 step and about 400 a pair a step; K9: the elimination's count a block
 step; K11: the 33-term dot and 5 more a pair; K12: EDGE_BLOCK_OPS an edge
-and one addition a term of the assembly); ``library_ms`` is null for K1-K6,
+and one addition a term of the assembly; K13: the d2 of every query
+against every valid ref, a brute-force selection's work, which K13 beats
+by skipping ref tiles); ``library_ms`` is null for K1-K6,
 K8 and K12's blocks, as no single PyTorch call computes a banded
 neighbourhood reduction, the GNC or an SE(3) log's Jacobian, for K7 the
 time of torch.cdist (direct formula) and its row minimum, for K9 that of
 torch.linalg.solve on the dense (6m)^2 system, for K11 torch.cdist and
-its minima on both axes and for K12's assembly one index_add_.
+its minima on both axes, for K12's assembly one index_add_ and for K13
+the tiled torch.topk selection it replaced (``ops/knn.knn_tiled``).
 """
 
 from __future__ import annotations
@@ -3169,6 +3186,111 @@ def phase_k10(dev) -> list[dict]:
                "pcr_tpu/ops/band_nn.py:105", list(checked.values()), checked[largest])]
 
 
+KNN_PAIR_OPS = 8          # FP32 operations of a (query, ref) d2 in K13 (pcr::sqdist)
+KNN_F64_ROWS = 256        # query rows held to the float64 k smallest in check_k13
+NCLT_BUCKET = 24576       # the benchmark's NCLT capacity
+
+
+def check_k13(label: str, args, timed: bool = False):
+    """K13 on knn_exact's arguments (query, ref, mask, k, exclude_self)
+    against its plain version: d2 and indices equal (both keep each row's k
+    smallest (d2, index) keys by the same rounded d2), two runs bit for bit,
+    KNN_F64_ROWS rows' d2 within FP32 rounding of the float64 k smallest.
+    Returns (0, ms, plain ms, bound ms, bound by, library ms: knn_tiled, the
+    tiled torch.topk path the card ran before K13) when ``timed``, else
+    (0,).  The bound counts every query against every valid ref, as a
+    brute-force selection does, and the output written once."""
+    import torch
+
+    from pcr_tpu_torch.ops import knn
+    from pcr_tpu_torch.ops.kernels import common
+    from pcr_tpu_torch.ops.kernels import nn_kernels as nk
+
+    q, r, m, k, excl = args
+    nq, nr, nv = q.shape[0], r.shape[0], int(m.sum())
+    d_k, i_k = nk.knn_select(q, r, m, k, exclude_self=excl)
+    d_k2, i_k2 = nk.knn_select(q, r, m, k, exclude_self=excl)
+    d_p, i_p = nk.knn_select_reference(q, r, m, k, exclude_self=excl)
+    torch.cuda.synchronize()
+    if not (torch.equal(d_k, d_k2) and torch.equal(i_k, i_k2)):
+        raise AssertionError(f"K13 {label}: two runs differ")
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"K13 {label}: d2 differs from the plain version's in "
+                             f"{int((d_k != d_p).any(dim=1).sum())} rows")
+    if not torch.equal(i_k, i_p):
+        raise AssertionError(f"K13 {label}: indices differ from the plain version's in "
+                             f"{int((i_k != i_p).any(dim=1).sum())} rows")
+    rows = torch.linspace(0, nq - 1, min(KNN_F64_ROWS, nq), device=q.device).long()
+    d64 = ((q[rows, None, :].double() - r[None, :, :].double()) ** 2).sum(-1)
+    d64 = torch.where(m[None, :], d64, torch.inf)
+    if excl and nq == nr:
+        d64[torch.arange(len(rows), device=q.device), rows] = torch.inf
+    d64 = torch.sort(d64, dim=1).values[:, :k]
+    real = torch.isfinite(d64)
+    f64 = float(((d_k[rows].double() - d64).abs() / d64.clamp(min=1e-30))[real].max()) \
+        if bool(real.any()) else 0.0
+    if not (torch.equal(real, d_k[rows] < common.BIG) and f64 <= 1e-6):
+        raise AssertionError(f"K13 {label}: d2 {f64} relative from the float64 k smallest")
+    line = (f"K13 knn_select {label}: {nq} q x {nr} refs ({nv} valid), k = {k}"
+            f"{', exclude_self' if excl else ''}: d2 and indices equal to the plain version's, "
+            f"two runs bit for bit, d2 within {f64:.2e} of the float64 k smallest")
+    if not timed:
+        print(line)
+        return (0.0,)
+    ms = cuda_ms(lambda: nk.knn_select(q, r, m, k, exclude_self=excl), 10)
+    plain = cuda_ms(lambda: nk.knn_select_reference(q, r, m, k, exclude_self=excl), 1)
+    lib = cuda_ms(lambda: knn.knn_tiled(q, r, m, k, exclude_self=excl), 3)
+    lim = bound(12 * (nq + nr) + nr + 12 * nq * k, KNN_PAIR_OPS * nq * nv)
+    print(line + f"; kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {lim[0]:.4f} ms "
+          f"({lim[1]}: every query against every valid ref), former tiled torch.topk path "
+          f"{lib:.2f} ms")
+    return 0.0, ms, plain, *lim, lib
+
+
+def phase_k13(dev) -> dict:
+    """Phase 24 (module docstring).  The JSON record keeps the times at the
+    largest Facade scan's shape (the selection features' k = 200 call)."""
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.ops import knn
+    from pcr_tpu_torch.utils import cloud
+
+    facade, _ = make_facade_circuit()
+    nclt = cloud.from_numpy(make_circuit()[0][0], NCLT_BUCKET, device=dev)
+    got = {}
+    for i in (0, FACADE_SCANS - 1):
+        c = cloud.from_numpy(facade[i], FACADE_CAPACITY, device=dev)
+        got[f"Facade scan {i}"] = check_k13(f"Facade scan {i}, selection features",
+                                            (c.points, c.points, c.mask, 200, True),
+                                            timed=True)
+    half = FACADE_CAPACITY // 2
+    got["sharded refs"] = check_k13(f"Facade scan {FACADE_SCANS - 1} against its first half",
+                                    (c.points, c.points[:half], c.mask[:half], 200, False))
+    got["NCLT"] = check_k13("NCLT scan 0, selection features",
+                            (nclt.points, nclt.points, nclt.mask, 200, True), timed=True)
+    got["viz"] = check_k13("NCLT scan 0, viz's k = 1",
+                           (nclt.points, nclt.points, nclt.mask, 1, True))
+    calls = []
+    original = knn.knn_exact
+
+    def kept(query, ref, ref_mask, k, *, exclude_self=False, **kw):
+        calls.append((query, ref, ref_mask, k, exclude_self))
+        return original(query, ref, ref_mask, k, exclude_self=exclude_self, **kw)
+
+    knn.knn_exact = kept
+    try:
+        multiscale.build_pyramid(nclt, 5, fused=False)
+    finally:
+        knn.knn_exact = original
+    if sorted({a[3] for a in calls}) != [20, 30] or len(calls) != 10:
+        raise AssertionError(f"the unfused pyramid made {len(calls)} knn_exact calls, k "
+                             f"{sorted({a[3] for a in calls})}")
+    for n, args in enumerate(calls):
+        got[f"pyramid {n}"] = check_k13(f"unfused pyramid, scale {n // 2}", args,
+                                        timed=n >= len(calls) - 2)
+    return record("knn_select", "pcr_tpu_torch/csrc/knn.cu", "pcr_tpu/ops/knn.py:170",
+                  list(got.values()), got[f"Facade scan {FACADE_SCANS - 1}"])
+
+
 def phase_loop_kernels(dev) -> list[dict]:
     """Phase 23 (module docstring): K8, K9, K11, K12 and K10 (``phase_k10``)
     against their plain versions on the arguments the earlier phases gave
@@ -3252,6 +3374,7 @@ def main() -> int:
     phase_mesh_two_ranks(scans, gt, init, batched, one)
     phase_graph_builder(dev)
     records += phase_loop_kernels(dev)
+    records.append(phase_k13(dev))
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

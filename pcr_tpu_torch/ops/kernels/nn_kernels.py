@@ -1,6 +1,7 @@
-"""K1 — banded 1-NN —, K7 — brute-force 1-NN — and K11 — mutual 1-NN in
-feature space (CUDA sources: ``pcr_tpu_torch/csrc/band_nn.cu``,
-``pcr_tpu_torch/csrc/nn1.cu`` and ``pcr_tpu_torch/csrc/mutual_nn.cu``).
+"""K1 — banded 1-NN —, K7 — brute-force 1-NN —, K11 — mutual 1-NN in
+feature space — and K13 — exact k-NN of 3-D points (CUDA sources:
+``pcr_tpu_torch/csrc/band_nn.cu``, ``pcr_tpu_torch/csrc/nn1.cu``,
+``pcr_tpu_torch/csrc/mutual_nn.cu`` and ``pcr_tpu_torch/csrc/knn.cu``).
 
 K1 replaces ``pcr_tpu/ops/pallas/nn_kernels.py:nn1_band_pallas``.  Each tile
 of ``q_tile`` sorted queries scans one contiguous slab of ``2*band`` sorted
@@ -58,7 +59,7 @@ from ...utils import trace
 from ...utils.cloud import pad_rows
 from . import build, common
 
-LAUNCHES = {"nn1_band": 0, "slab_starts": 0, "nn1": 0, "nn1_mutual": 0}
+LAUNCHES = {"nn1_band": 0, "slab_starts": 0, "nn1": 0, "nn1_mutual": 0, "knn_select": 0}
 # K7's geometry (csrc/nn1.cu's kThreads, kQueries, kGroup, kMinBlocks: its
 # launch bounds hold the partial kernel to 64 registers, so 8 blocks fit an
 # SM), the waves of resident blocks it fills and the fewest rows of a ref
@@ -70,6 +71,8 @@ NN1_BLOCKS_PER_SM = 8
 NN1_WAVES = 1
 NN1_MIN_SPLIT_ROWS = 256
 MUTUAL_DIM = 33        # K11's feature width (csrc/mutual_nn.cu's kDim): FPFH
+KNN_MAX_K = 256        # the largest k K13 takes (csrc/knn.cu's kMaxK)
+KNN_MIN_TILE = 64      # the fewest ref rows of a K13 tile at any geometry tools/tune_knn.py tries
 
 
 def slab_limits(r: torch.Tensor, ra: torch.Tensor, axis: torch.Tensor,
@@ -302,3 +305,87 @@ def nn1_mutual(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor, b_mask: t
     LAUNCHES["nn1_mutual"] += 1
     trace.shape("nn1_mutual", na, nb)
     return ij, ji
+
+
+def knn_select_reference(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor,
+                         k: int, *, exclude_self: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K13, over groups of queries whose (group, nr)
+    distance temporaries stay bounded: every d2 by the kernel's rounded
+    formula, BIG for a masked ref and, with ``exclude_self``, for the
+    query's own row; each row's k smallest (d2, index) keys (d2's bits above
+    the index), ascending.  Slots past nr take (BIG, 0).  Returns (d2 (nq,
+    k) f32, index (nq, k) int64)."""
+    nq, nr = query.shape[0], ref.shape[0]
+    kk = min(k, nr)
+    d_out = torch.full((nq, k), common.BIG, dtype=torch.float32, device=query.device)
+    i_out = torch.zeros((nq, k), dtype=torch.int64, device=query.device)
+    col = torch.arange(nr, device=query.device)
+    for g in common.tile_groups(nq, nr, budget=1 << 24):
+        d2 = common.sqdist_tiles(query[None, g], ref[None])[0]
+        drop = ~ref_mask[None, :]
+        if exclude_self:
+            drop = drop | (col[None, :] == torch.arange(g.start, g.stop,
+                                                        device=query.device)[:, None])
+        d2 = torch.where(drop, common.BIG, d2).contiguous()
+        key = (d2.view(torch.int32).to(torch.int64) << 32) | col
+        top = torch.topk(key, kk, dim=1, largest=False, sorted=True).values
+        d_out[g, :kk] = (top >> 32).to(torch.int32).view(torch.float32)
+        i_out[g, :kk] = top & 0xFFFFFFFF
+    return d_out, i_out
+
+
+def knn_select(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int, *,
+               exclude_self: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k nearest valid refs of every query row.
+
+    query (nq, 3), ref (nr, 3) f32, ref_mask (nr,) bool, nr >= 1.  Returns
+    (d2 (nq, k) f32, index (nq, k) int64): each row's k smallest (d2, index)
+    keys, ascending, ties to the smaller index; with ``exclude_self`` a
+    query's own row (index i for query i) never counts; slots past the
+    valid refs hold BIG and the smallest indices among the masked refs and
+    the query's own row, ascending.  It takes D = 3, float32 and
+    1 <= k <= KNN_MAX_K and refuses anything else, on either device; then
+    CPU tensors run the plain version and CUDA tensors launch the kernel.
+    On the card the refs (and, unless ``query is ref``, the queries) are
+    first ordered along a Morton curve in the valid refs' box.
+    """
+    nq, nr = query.shape[0], ref.shape[0]
+    if nr < 1:
+        raise ValueError("knn_select needs at least one ref row")
+    common.check(query, "query", torch.float32, (nq, 3))
+    common.check(ref, "ref", torch.float32, (nr, 3))
+    common.check(ref_mask, "ref_mask", torch.bool, (nr,))
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"knn_select takes 1 <= k <= {KNN_MAX_K}, got {k}")
+    if not common.on_cuda(query, ref, ref_mask):
+        return knn_select_reference(query, ref, ref_mask, k, exclude_self=exclude_self)
+    dev = query.device
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out_d, out_i
+    self_order = query is ref
+    lo_hi = torch.empty(6, dtype=torch.float32, device=dev)
+    rcode = torch.empty(nr, dtype=torch.int32, device=dev)
+    qcode = rcode if self_order else torch.empty(nq, dtype=torch.int32, device=dev)
+    rows = torch.empty((nr, 4), dtype=torch.float32, device=dev)
+    box = torch.empty(-(-nr // KNN_MIN_TILE) * 6, dtype=torch.float32, device=dev)
+    lib = build.library()
+    stream = common.stream_of(query)
+    with torch.cuda.device(dev):
+        err = lib.pcr_knn_morton(ref.data_ptr(), ref_mask.data_ptr(), nr,
+                                 None if self_order else query.data_ptr(), nq,
+                                 lo_hi.data_ptr(), rcode.data_ptr(), qcode.data_ptr(), stream)
+        build.check_launch("knn_select", err)
+        rperm = torch.argsort(rcode, stable=True)
+        qperm = rperm if self_order else torch.argsort(qcode, stable=True)
+        n_valid = ref_mask.sum(dtype=torch.int32)
+        err = lib.pcr_knn_select(query.data_ptr(), qperm.data_ptr(), nq, ref.data_ptr(),
+                                 rperm.data_ptr(), n_valid.data_ptr(), ref_mask.data_ptr(), nr,
+                                 k, int(exclude_self), rows.data_ptr(), box.data_ptr(),
+                                 out_d.data_ptr(), out_i.data_ptr(), stream)
+    build.check_launch("knn_select", err)
+    LAUNCHES["knn_select"] += 1
+    trace.shape("knn_select", nq, nr, k)
+    return out_d, out_i

@@ -1,12 +1,15 @@
-"""Tiled brute-force nearest neighbours (port of pcr_tpu/ops/knn.py).
+"""Brute-force nearest neighbours (port of pcr_tpu/ops/knn.py).
 
-Candidates are selected by the expanded distance ||q||^2 + ||r||^2 - 2 q.r,
-the cross term one matmul per query tile, then re-scored with the exact
-(q - r)^2 and re-sorted, so every returned distance is exact and ascending;
-missing entries (masked or absent refs) get d2 >= BIG.  The cross term must
-be a true f32 product (``pcr_tpu_torch`` sets that policy on import): at
-LiDAR coordinates TF32 would reorder the selection, and FPFH values reach
-~200.
+The exact k-NN ``knn_exact`` of 3-D points runs kernel K13
+(``ops/kernels/nn_kernels.knn_select``, ``csrc/knn.cu``; its plain version
+on CPU tensors): each row's k smallest (d2, index) keys, d2 by the exact
+rounded formula, ties to the smaller index, so every returned distance is
+exact and ascending.  Other widths run ``knn_tiled``, pcr_tpu's tiled
+selection: candidates by the expanded distance ||q||^2 + ||r||^2 - 2 q.r,
+the cross term one matmul per query tile, re-scored with the exact
+(q - r)^2 and re-sorted.  Missing entries (masked or absent refs) get
+d2 >= BIG.  The cross term must be a true f32 product (``pcr_tpu_torch``
+sets that policy on import): FPFH values reach ~200.
 
 The 1-NN ``nn1`` launches kernel K7 (``ops/kernels/nn_kernels.nn1``) on the
 card: it scores the whole ref with the exact formula and needs no re-score.
@@ -84,13 +87,31 @@ def _padded(query, ref, ref_mask, k_search: int, q_tile: int):
 def knn_exact(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int, *,
               exclude_self: bool = False,
               q_tile: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN of ``query`` (Nq, D) in ``ref`` (Nr, D) for any D (3 for
-    points, 33 for FPFH features).
+    """Exact k-NN of ``query`` (Nq, D) in ``ref`` (Nr, D).
 
     Returns (sqdists (Nq, k) ascending, indices (Nq, k) int64).  Entries
-    beyond the number of valid refs get sqdist >= BIG and the index of a
-    best-effort candidate; callers gate on distance or mask.
-    ``exclude_self=True`` drops the i == j pair (query IS ref).
+    beyond the number of valid refs get sqdist >= BIG and an in-range index;
+    callers gate on distance or mask.  ``exclude_self=True`` drops the
+    i == j pair (query IS ref).
+
+    D = 3 runs K13 (``nn_kernels.knn_select``: float32, k <= ``nn_kernels.
+    KNN_MAX_K``, anything else refused): ties go to the smaller index, and
+    the slots past the valid refs hold the smallest masked indices.  Other
+    D runs ``knn_tiled`` in ``q_tile``-row tiles.
+    """
+    if query.shape[-1] == 3:
+        return nn_kernels.knn_select(query.contiguous(), ref.contiguous(),
+                                     ref_mask.contiguous(), k, exclude_self=exclude_self)
+    return knn_tiled(query, ref, ref_mask, k, exclude_self=exclude_self, q_tile=q_tile)
+
+
+def knn_tiled(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int, *,
+              exclude_self: bool = False,
+              q_tile: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """``knn_exact``'s selection at D != 3, any D: ``torch.topk`` of the
+    expanded d2 over each (q_tile, Nr) row block, the picks re-scored
+    exactly and re-sorted (stable).  Entries beyond the number of valid refs
+    get sqdist >= BIG and the index of a best-effort candidate.
 
     pcr_tpu merges a running top-k over ref chunks; one ``torch.topk`` over
     each full (q_tile, Nr) row selects the same set.

@@ -1,4 +1,4 @@
-"""Kernels K1-K12 on the card against their plain PyTorch
+"""Kernels K1-K13 on the card against their plain PyTorch
 versions on the same CUDA tensors.  Marked ``cuda``: each test skips without a GPU.  This
 file imports neither jax nor pcr_tpu, so it also runs where JAX is absent:
 
@@ -13,7 +13,7 @@ import chip_smoke
 from pcr_tpu_torch.models import fgr, gicp, multiscale
 from pcr_tpu_torch.models.global_refine import pose_graph
 from pcr_tpu_torch.ops import band_nn, knn, preprocess
-from pcr_tpu_torch.ops.kernels import (feature_kernels, gicp_kernels, graph_kernels,
+from pcr_tpu_torch.ops.kernels import (common, feature_kernels, gicp_kernels, graph_kernels,
                                        loop_kernels, nn_kernels)
 from pcr_tpu_torch.utils import cloud, se3, trace
 from pcr_tpu_torch.utils.cloud import pad_rows
@@ -683,3 +683,130 @@ def test_gicp_kernels_never_fall_back(cuda_rng, monkeypatch):
     assert nn_kernels.LAUNCHES["slab_starts"] == before["slab_starts"] + 1
     with pytest.raises(ValueError, match="unknown loss"):
         gicp.registration_gicp(src, tgt, 0.5, np.eye(4, dtype=np.float32), loss="huber")
+
+
+def _knn_case(rng, kind: str, n: int):
+    """(points (n, 3) f32, mask) on the card for K13: ``surface`` is a wavy
+    60 m patch with a dense 4 m core and 10% of its rows masked here and
+    there; ``bucket`` keeps the first 44,728 rows valid and parks the rest
+    at PAD_COORD (a Facade scan in its 90112-row bucket); ``lattice`` puts
+    the points on a 0.5 m lattice with every row repeated further on
+    (exact d2 ties everywhere); ``few`` keeps 150 valid rows and ``none``
+    none."""
+    dev = torch.device("cuda")
+    if kind == "lattice":
+        x = rng.integers(-10, 10, size=(n - n // 3, 3)).astype(np.float32) * 0.5
+        x = np.concatenate([x, x[::-1][:n // 3]])
+    else:
+        x = rng.uniform(-30, 30, size=(n, 3)).astype(np.float32)
+        x[: n // 4] *= 0.0667
+        x[:, 2] = 0.5 * np.sin(x[:, 0] / 3) + rng.normal(0, 0.01, n).astype(np.float32)
+    mask = rng.random(n) >= 0.1
+    if kind == "bucket":
+        mask = np.arange(n) < 44728
+        x[~mask] = cloud.PAD_COORD
+    elif kind == "few":
+        mask = np.zeros(n, bool)
+        mask[rng.choice(n, size=150, replace=False)] = True
+    elif kind == "none":
+        mask = np.zeros(n, bool)
+    return torch.as_tensor(x, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def _knn_float64(q, r, mask, k: int, exclude_self: bool, rows):
+    """The float64 k smallest d2 of the query rows ``rows`` over the valid
+    refs (the query's own row dropped), inf past them."""
+    d = ((q[rows, None, :].double() - r[None, :, :].double()) ** 2).sum(-1)
+    d = torch.where(mask[None, :], d, torch.inf)
+    if exclude_self:
+        d[torch.arange(len(rows), device=d.device), rows] = torch.inf
+    return torch.sort(d, dim=1).values[:, :k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 30, 200])
+@pytest.mark.parametrize("kind,nq,nr,exclude_self", [("surface", 5000, 7001, False),
+                                                     ("surface", 4099, 4099, True),
+                                                     ("lattice", 3001, 3001, True),
+                                                     ("few", 2000, 2000, True),
+                                                     ("none", 300, 300, True),
+                                                     ("surface", 50, 120, False)])
+def test_knn_select_kernel_matches_plain(cuda_rng, kind, nq, nr, exclude_self, k):
+    """K13 against its plain version: d2 bit-equal and indices equal (both
+    keep each row's k smallest (d2, index) keys, d2 by the same rounded
+    formula, so even exact ties at the k-th slot agree), two runs bit for
+    bit, one launch a call; queries another cloud than the refs (nq != nr),
+    nq off every multiple of the kernel's query block, exact ties
+    everywhere, fewer valid refs than k, none, and fewer refs than k."""
+    r, mask = _knn_case(cuda_rng, kind, nr)
+    q = r if nq == nr else _knn_case(cuda_rng, kind, nq)[0]
+    before = nn_kernels.LAUNCHES["knn_select"]
+    d_k, i_k = nn_kernels.knn_select(q, r, mask, k, exclude_self=exclude_self)
+    d_k2, i_k2 = nn_kernels.knn_select(q, r, mask, k, exclude_self=exclude_self)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["knn_select"] == before + 2
+    assert torch.equal(d_k, d_k2) and torch.equal(i_k, i_k2)
+    d_p, i_p = nn_kernels.knn_select_reference(q, r, mask, k, exclude_self=exclude_self)
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(i_k, i_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 200])
+def test_knn_select_kernel_at_the_facade_bucket(cuda_rng, k):
+    """K13 at the selection features' shape, 90112 rows with 44,728 valid,
+    exclude_self: equal to the plain version, and its d2 rows (sampled)
+    within FP32 rounding of the float64 k smallest."""
+    x, mask = _knn_case(cuda_rng, "bucket", 90112)
+    d_k, i_k = nn_kernels.knn_select(x, x, mask, k, exclude_self=True)
+    d_p, i_p = nn_kernels.knn_select_reference(x, x, mask, k, exclude_self=True)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    rows = torch.arange(0, 90112, 331, device=x.device)
+    d64 = _knn_float64(x, x, mask, k, True, rows)
+    real = torch.isfinite(d64)
+    assert torch.equal(real, d_k[rows] < common.BIG)
+    assert torch.allclose(d_k[rows][real].double(), d64[real], rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 30, 200])
+def test_knn_select_kernel_within_fp32_rounding_of_float64(cuda_rng, k):
+    """K13's d2 rows equal the float64 k smallest within FP32 rounding (the
+    formula's eight operations round once each), queries another cloud."""
+    r, mask = _knn_case(cuda_rng, "surface", 6000)
+    q = _knn_case(cuda_rng, "surface", 3000)[0]
+    d_k, _ = nn_kernels.knn_select(q, r, mask, k)
+    rows = torch.arange(3000, device=q.device)
+    d64 = _knn_float64(q, r, mask, k, False, rows)
+    assert torch.allclose(d_k.double(), d64, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_knn_select_never_falls_back(cuda_rng, monkeypatch):
+    """With K13's plain version and the tiled selection made to raise,
+    knn_exact and fgr_features on CUDA tensors run through K13, one launch
+    a call; float64, D = 33 and k above KNN_MAX_K raise."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain selection ran on CUDA tensors")
+
+    monkeypatch.setattr(nn_kernels, "knn_select_reference", refuse)
+    monkeypatch.setattr(knn, "knn_tiled", refuse)
+    x, mask = _knn_case(cuda_rng, "surface", 4000)
+    before = nn_kernels.LAUNCHES["knn_select"]
+    d, i = knn.knn_exact(x, x, mask, 30, exclude_self=True)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["knn_select"] == before + 1
+    assert bool((i != torch.arange(4000, device=x.device)[:, None]).all())
+    c = cloud.from_numpy(x.cpu().numpy()[mask.cpu().numpy()], 4096, device=x.device)
+    before = nn_kernels.LAUNCHES["knn_select"]
+    _, feat = fgr.fgr_features(c, 0.5)
+    torch.cuda.synchronize()
+    assert nn_kernels.LAUNCHES["knn_select"] == before + 1
+    assert bool(torch.isfinite(feat).all())
+    with pytest.raises(TypeError):
+        nn_kernels.knn_select(x.double(), x.double(), mask, 20)
+    f = torch.zeros(100, 33, device=x.device)
+    with pytest.raises(ValueError):
+        nn_kernels.knn_select(f, f, torch.ones(100, dtype=torch.bool, device=x.device), 20)
+    with pytest.raises(ValueError):
+        nn_kernels.knn_select(x, x, mask, nn_kernels.KNN_MAX_K + 1)

@@ -57,6 +57,7 @@ def _assert_knn_match(d_t, i_t, d_j, i_j, rows):
     np.testing.assert_allclose(d_t[real], d_j[real], rtol=RTOL, atol=1e-9)
     tol = RTOL * np.abs(d_j) + 1e-9
     padded = np.pad(d_j, ((0, 0), (1, 1)), constant_values=np.inf)
+    padded[:, 0] = -np.inf               # the first column has no left neighbour
     apart = ((padded[:, 1:-1] - padded[:, :-2] > 2 * tol)
              & (padded[:, 2:] - padded[:, 1:-1] > 2 * tol) & real)
     assert apart[real].mean() > 0.9
@@ -93,6 +94,31 @@ def test_knn_exact_fewer_valid_refs_than_k(rng, exclude_self):
     n_real = (d_t < t_knn.BIG).sum(1).numpy()
     assert set(n_real.tolist()) <= {11, 12}
     _assert_knn_match(d_t, i_t, d_j, i_j, slice(None))
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("k", [1, 20, 200])
+@pytest.mark.parametrize("case", ["self", "other_cloud", "few_valid"])
+def test_knn_select_plain_matches_pcr_tpu(rng, case, k, exclude_self):
+    """K13's plain version (the rule the kernel holds to, bit for bit, on the
+    card) against pcr_tpu's knn_exact on the same points: a padded cloud
+    against itself; queries that are another cloud (nq != nr, not a tile
+    multiple); and 12 valid refs at k >= 20, where the slots past them are
+    >= BIG in both."""
+    x, mask = _data(rng, 3)
+    q = x
+    if case == "other_cloud":
+        q = rng.uniform(-21, 21, size=(333, 3)).astype(np.float32)
+        q[:, 2] *= 0.2
+    elif case == "few_valid":
+        mask = np.zeros(len(x), bool)
+        mask[rng.choice(700, 12, replace=False)] = True
+    d_j, i_j = j_knn.knn_exact(jnp.asarray(q), jnp.asarray(x), jnp.asarray(mask), k,
+                               exclude_self=exclude_self)
+    d_t, i_t = nn_kernels.knn_select_reference(_t(q), _t(x), _t(mask), k,
+                                               exclude_self=exclude_self)
+    rows = mask if case == "self" else slice(None)
+    _assert_knn_match(d_t, i_t, d_j, i_j, rows)
 
 
 def test_knn_approx_without_rescore(rng):

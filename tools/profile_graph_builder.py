@@ -14,8 +14,10 @@ chip_smoke.py's Facade-scale circuit (phase 22's scans and call).
      (the scans still come from this checkout's chip_smoke.py);
   2. the builders warm (full_registration_batched at batch 2, then
      full_registration, each run twice, the second read): walls and the
-     time in features, matching + tuple test, GNC, M-GICP, evaluations and
-     information matrices, each call timed between two device drains;
+     time in features (and, inside it, the k = 200 selection: knn_exact,
+     kernel K13 on the card), matching + tuple test, GNC, M-GICP,
+     evaluations and information matrices, each call timed between two
+     device drains;
   3. FGR's GNC over 2 pairs' fixed correspondences at 24576 and 90112
      rows: the two pairs one after another against one batched GNC, and
      the batched GNC's three largest kernels by device time
@@ -115,11 +117,13 @@ def _timed(timings, mod, name: str, key: str) -> None:
 def builder_split() -> None:
     """Part 2."""
     from pcr_tpu_torch.models import evaluate, fgr, graph_builder, multiscale
+    from pcr_tpu_torch.ops import knn
 
     cs = _chip_smoke()
     clouds, _ = _clouds(cs, cs.FACADE_CAPACITY)
     timings = collections.defaultdict(lambda: [0.0, 0])
     for mod, name, key in ((fgr, "fgr_features", "features"),
+                           (knn, "knn_exact", "features' kNN"),
                            (fgr, "_correspondences", "matching + tuple test"),
                            (fgr, "fgr_from_correspondences", "GNC"),
                            (multiscale, "multiscale_gicp", "M-GICP"),
