@@ -23,7 +23,8 @@ statistically, or exactly when handed the same draws (``u``).
 ``registro_fgr`` is the reference's whole per-pair pipeline over the
 selection features of ``fgr_features`` (one exact k=200 self-kNN shared by
 the hybrid normals and the FPFH); the stage-1 runner's default features are
-the banded ones of ``ops/fpfh_sorted``.
+the banded ones of ``ops/fpfh_sorted``.  ``stage1_features`` and
+``batched_stage1_features`` are the one place that chooses between the two.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import fpfh as fpfh_ops
+from ..ops import fpfh_sorted
 from ..ops import knn as knn_ops
 from ..ops import normals as normals_ops
 from ..ops.kernels import loop_kernels
@@ -266,6 +268,31 @@ def batched_fgr_features(clouds: Cloud, voxel_size: float) -> tuple[Cloud, torch
     covariances, (B, N, 33) features)."""
     out = [fgr_features(clouds[b], voxel_size) for b in range(clouds.points.shape[0])]
     return stack_clouds([c for c, _ in out]), torch.stack([f for _, f in out])
+
+
+def stage1_features(c: Cloud, voxel_size: float, kind: str,
+                    band: int) -> tuple[Cloud, torch.Tensor]:
+    """Stage 1's features of one scan, of ``PipelineConfig.stage1_features``'
+    ``kind``: "banded" (``fpfh_sorted.fgr_features_sorted`` at ``band``,
+    kernels K4-K6) or "selection" (``fgr_features``).  Any other kind
+    raises."""
+    if kind == "banded":
+        return fpfh_sorted.fgr_features_sorted(c, voxel_size, band=band)
+    if kind == "selection":
+        return fgr_features(c, voxel_size)
+    raise ValueError(f"unknown stage1_features {kind!r}")
+
+
+def batched_stage1_features(clouds: Cloud, voxel_size: float, kind: str,
+                            band: int) -> tuple[Cloud, torch.Tensor]:
+    """``stage1_features`` of every scan of a stacked Cloud (leading
+    dimension B): ``fpfh_sorted.batched_fgr_features_sorted`` at ``band``
+    or ``batched_fgr_features``.  Any other kind raises."""
+    if kind == "banded":
+        return fpfh_sorted.batched_fgr_features_sorted(clouds, voxel_size, band=band)
+    if kind == "selection":
+        return batched_fgr_features(clouds, voxel_size)
+    raise ValueError(f"unknown stage1_features {kind!r}")
 
 
 def registro_fgr(source: Cloud, target: Cloud, voxel_size: float,

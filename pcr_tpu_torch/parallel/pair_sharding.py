@@ -19,7 +19,6 @@ import torch
 from ..models import fgr as fgr_mod
 from ..models import gicp as gicp_mod
 from ..models import multiscale as ms_mod
-from ..ops import fpfh_sorted
 from ..utils.cloud import Cloud
 from ..utils.collectives import all_gather_rows
 from .mesh import Mesh
@@ -92,13 +91,11 @@ def sharded_fgr_features(mesh: Mesh, clouds: Cloud, voxel_size, features: str = 
     """Per-scan stage-1 features (normals + FPFH) with the scans of a stack
     sharded over 'pairs'; returns (stacked clouds, (S, N, 33) features)
     replicated.  ``features``: 'banded' (``fpfh_sorted``, kernels K4-K6) or
-    'selection' (``fgr.fgr_features``).  The scan batch must divide by the
-    axis size (pad by repeating a scan)."""
+    'selection' (``fgr.fgr_features``), chosen by
+    ``fgr.batched_stage1_features``.  The scan batch must divide by the axis
+    size (pad by repeating a scan)."""
     sl = _check_pairs(mesh, clouds.points.shape[0], "scan batch")
-    if features == "banded":
-        c, f = fpfh_sorted.batched_fgr_features_sorted(clouds[sl], voxel_size, band=band)
-    else:
-        c, f = fgr_mod.batched_fgr_features(clouds[sl], voxel_size)
+    c, f = fgr_mod.batched_stage1_features(clouds[sl], voxel_size, features, band)
     group = mesh.group("pairs")
     return gather_cloud(c, group), all_gather_rows(f, group)
 

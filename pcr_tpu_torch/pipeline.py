@@ -14,6 +14,11 @@ them, so the pipeline is restartable at stage granularity.
   stage 3  global refinement: LUM / SLERP / SLERP+LUM (host float64) and the
            pose-graph LM over band-NN information matrices (on the card)
 
+The streamed loops (``run_full``'s, and the staged runners' at
+``batch_size`` 1 and stage 2's at every batch size) share one window of
+pairs in flight (``_stream_pairs``), one per-scan cache class
+(``_ScanCache``) and one retry pass (``_retry_failures``).
+
 Each runner takes the clouds it is given (a list of port Clouds, or a
 ``cloud.LazyClouds``, on one device, where the run happens) or, with
 ``clouds=None``, loads the dataset's PCD scans onto the CUDA card
@@ -33,6 +38,7 @@ returns.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -47,7 +53,6 @@ from .models import fgr as fgr_mod
 from .models import multiscale as ms_mod
 from .models.global_refine import closed_form
 from .models.global_refine import pose_graph as pg_mod
-from .ops import fpfh_sorted
 from .parallel import mesh as mesh_mod
 from .utils import cloud as cloud_mod
 from .utils import collectives, poses_io, se3, trace
@@ -177,30 +182,88 @@ def _writes(mesh) -> bool:
     return mesh_mod.rank() == 0
 
 
-def _pad_feat(feat, capacity: int):
-    """Pad (N, 33) features with zero rows to ``capacity`` (mask handles it)."""
-    return cloud_mod.pad_rows(feat, capacity, 0.0)
-
-
 def _prep_features(c, bucket: int, voxel: float, band: int, features_kind: str = "banded"):
     """Per-scan stage-1 preprocessing: compact to the scan's capacity bucket,
-    then the banded or the selection normals + FPFH."""
-    cc = cloud_mod.compact(c, bucket)
-    if features_kind == "banded":
-        return fpfh_sorted.fgr_features_sorted(cc, voxel, band=band)
-    return fgr_mod.fgr_features(cc, voxel)
+    then the banded or the selection normals + FPFH
+    (``fgr.stage1_features``)."""
+    return fgr_mod.stage1_features(cloud_mod.compact(c, bucket), voxel, features_kind, band)
 
 
 def _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B: int):
-    """Pad a pair's clouds and features to the pair bucket B."""
-    return (cloud_mod.pad_to(src_f, B), _pad_feat(feat_src, B),
-            cloud_mod.pad_to(tgt_f, B), _pad_feat(feat_tgt, B))
+    """Pad a pair's clouds and features (zero rows, masked) to the pair
+    bucket B."""
+    return (cloud_mod.pad_to(src_f, B), cloud_mod.pad_rows(feat_src, B, 0.0),
+            cloud_mod.pad_to(tgt_f, B), cloud_mod.pad_rows(feat_tgt, B, 0.0))
 
 
 def _fgr_pair_step(src_f, feat_src, tgt_f, feat_tgt, seed: int, B: int, opts):
     """Per-pair stage-1 step: pad both scans to the pair bucket, then FGR."""
     src_p, fs, tgt_p, ft = _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B)
     return fgr_mod.registration_fgr(src_p, tgt_p, fs, ft, opts, seed=seed)
+
+
+class _ScanCache(dict):
+    """A streamed runner's per-scan features or pyramids: scan i's is built
+    by ``build(i)`` on its first lookup.  Pair (s, s-1) is followed by pair
+    (s+1, s), so after it ``evict(s)`` keeps only scans s and s+1."""
+
+    def __init__(self, n: int, build):
+        super().__init__()
+        self._n, self._build = n, build
+
+    def __missing__(self, i: int):
+        self[i] = self._build(i)
+        return self[i]
+
+    def evict(self, s: int) -> None:
+        for i in [i for i in self if i not in (s, (s + 1) % self._n)]:
+            del self[i]
+
+
+def _stream_pairs(ks, submit, read, row, inflight: int, checkpoint=None) -> None:
+    """The streamed runners' window: ``submit(k)`` launches pair k and
+    returns its device results, and the oldest pair is read once
+    ``max(inflight, 1)`` are in flight (the rest at the end), so each read
+    overlaps the next pairs' work.  ``read(k, results)`` runs in the ``sync``
+    span and its host values go to ``row(k, results, values, seconds)``,
+    seconds from submission to the end of the read (the ``pair`` span).
+    ``checkpoint(m)``, if given, runs after every 50th pair read."""
+    window = collections.deque()
+    n_read = 0
+
+    def read_oldest():
+        nonlocal n_read
+        k, t_submit, results = window.popleft()
+        with trace.span("sync", site="drain"):
+            values = read(k, results)
+        t_read = time.time_ns()
+        trace.record("pair", t_submit, t_read, k=k)
+        row(k, results, values, (t_read - t_submit) * 1e-9)
+        n_read += 1
+        if checkpoint is not None and n_read % 50 == 0:
+            checkpoint(n_read)
+
+    for k in ks:
+        t_submit = time.time_ns()
+        window.append((k, t_submit, submit(k)))
+        while len(window) >= max(inflight, 1):
+            read_oldest()
+    while window:
+        read_oldest()
+
+
+def _partial_checkpoint(cfg: PipelineConfig, metrics: PairMetrics, stage1=None, stage2=None):
+    """``_stream_pairs``' crash-resumable checkpoint: after m pairs read, the
+    first m poses of each stage given (``<stage>_partial.npy``) and its
+    rows.  Only a rank that writes passes one, and its pairs start at 0."""
+    def save(m: int) -> None:
+        d = cfg.out_dir("metrics")
+        os.makedirs(d, exist_ok=True)
+        for name, stage, out in (("stage1", "fgr", stage1), ("stage2", "mgicp", stage2)):
+            if out is not None:
+                np.save(os.path.join(d, f"{name}_partial.npy"), out[:m])
+                metrics.save(os.path.join(d, f"{name}.jsonl"), stage=stage)
+    return save
 
 
 def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
@@ -216,8 +279,6 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     (``_run_stage1_fgr_batched``), and so they do with a ``mesh``, each chunk
     sharded over its 'pairs' axis."""
     _writes(mesh)    # refuses a mesh that is not a Mesh
-    if cfg.stage1_features not in ("banded", "selection"):
-        raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     if clouds is None:
         clouds = _load_circuit_clouds(cfg, range(n))
@@ -225,51 +286,29 @@ def run_stage1_fgr(cfg: PipelineConfig, clouds=None, n: int | None = None,
     if cfg.batch_size > 1 or mesh is not None:
         return _run_stage1_fgr_batched(cfg, clouds, n, metrics, mesh)
     buckets = _buckets(clouds, n, cfg.bucket_granularity)
-    feat_cache: dict[int, tuple] = {}
-
-    def features(i):
-        if i not in feat_cache:
-            feat_cache[i] = _prep_features(clouds[i], buckets[i], cfg.voxel_size,
-                                           cfg.stage1_band, cfg.stage1_features)
-        return feat_cache[i]
-
-    ckpt = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
+    features = _ScanCache(n, lambda i: _prep_features(
+        clouds[i], buckets[i], cfg.voxel_size, cfg.stage1_band, cfg.stage1_features))
+    pairs = circuit_pairs(n)
     out = np.zeros((n, 4, 4))
-    # Pipelined loop: register up to cfg.inflight pairs before reading the
-    # oldest result, so its device-to-host reads overlap the next pairs' work.
-    inflight: list[tuple] = []
-    drained = 0
 
-    def drain_one():
-        nonlocal drained
-        k, src_i, tgt_i, res, t_submit = inflight.pop(0)
-        with trace.span("sync", site="drain"):
-            out[k] = res.transformation.double().cpu().numpy()
-            fit, rmse = float(res.fitness), float(res.inlier_rmse)
-        t_read = time.time_ns()
-        trace.record("pair", t_submit, t_read, k=k)
-        metrics.add("fgr", src_i, tgt_i, fit, rmse, (t_read - t_submit) * 1e-9)
-        drained = k + 1
-        if drained % 50 == 0:  # crash-resumable partial checkpoint
-            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
-            np.save(ckpt, out[:drained])
-            metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
-
-    for k, (src_i, tgt_i) in enumerate(circuit_pairs(n)):
-        t_submit = time.time_ns()
-        src, feat_src = features(src_i)
-        tgt, feat_tgt = features(tgt_i)
+    def submit(k):
+        s, t = pairs[k]
+        (src, feat_src), (tgt, feat_tgt) = features[s], features[t]
         B = max(src.capacity, tgt.capacity)
         opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)
-        res = _fgr_pair_step(src, feat_src, tgt, feat_tgt, cfg.fgr_seed + src_i, B, opts)
-        inflight.append((k, src_i, tgt_i, res, t_submit))
-        # keep only the features the next pair still needs
-        for key in [key for key in feat_cache if key not in (src_i, (src_i + 1) % n)]:
-            del feat_cache[key]
-        while len(inflight) >= max(cfg.inflight, 1):
-            drain_one()
-    while inflight:
-        drain_one()
+        res = _fgr_pair_step(src, feat_src, tgt, feat_tgt, cfg.fgr_seed + s, B, opts)
+        features.evict(s)
+        return res
+
+    def read(k, res):
+        out[k] = res.transformation.double().cpu().numpy()
+        return float(res.fitness), float(res.inlier_rmse)
+
+    def row(k, res, values, seconds):
+        metrics.add("fgr", *pairs[k], *values, seconds)
+
+    _stream_pairs(range(n), submit, read, row, cfg.inflight,
+                  _partial_checkpoint(cfg, metrics, stage1=out))
     _flag_stage1_outliers(out, metrics)
     poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out)
     metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
@@ -344,11 +383,9 @@ def _run_stage1_fgr_batched(cfg: PipelineConfig, clouds, n: int,
             feat_clouds, feats = pair_sharding.sharded_fgr_features(
                 mesh, stacked, cfg.voxel_size, features=cfg.stage1_features,
                 band=cfg.stage1_band)
-        elif cfg.stage1_features == "banded":
-            feat_clouds, feats = fpfh_sorted.batched_fgr_features_sorted(
-                stacked, cfg.voxel_size, band=cfg.stage1_band)
         else:
-            feat_clouds, feats = fgr_mod.batched_fgr_features(stacked, cfg.voxel_size)
+            feat_clouds, feats = fgr_mod.batched_stage1_features(
+                stacked, cfg.voxel_size, cfg.stage1_features, cfg.stage1_band)
         # pair j of the chunk: source = scan slot j+1, target = slot j
         src_pos = [min(j + 1, m) for j in range(B)]
         tgt_pos = [min(j, m - 1) for j in range(B)]
@@ -406,6 +443,27 @@ def _retry_pair(cfg: PipelineConfig, src_c, tgt_c, res0, src_pyr, tgt_pyr,
     if float(best_res.fitness) <= cfg.retry_fitness:
         status += ",low_fitness"
     return best_res, status, best_score
+
+
+def _retry_failures(cfg: PipelineConfig, clouds, pyramids: _ScanCache, failures,
+                    out: np.ndarray, metrics: PairMetrics) -> None:
+    """The retry ladder's second pass over the failed pairs, ``(k, index of
+    its stage-2 row, result)`` each: ``out[k]`` and the row are replaced by
+    ``_retry_pair``'s, the row's seconds gain the ladder's wall."""
+    for k, row, res0 in failures:
+        s, t = metrics.rows[row]["src"], metrics.rows[row]["tgt"]
+        t0 = time.time()
+        res, status, gate_sc = _retry_pair(cfg, clouds[s], clouds[t], res0,
+                                           pyramids[s], pyramids[t], seed_base=s)
+        with trace.span("sync", site="retry"):
+            out[k] = res.transformation.double().cpu().numpy()
+            fit, rmse, its = (float(res.fitness), float(res.inlier_rmse),
+                              res.scale_iterations.tolist())
+        metrics.rows[row] = dict(
+            stage="mgicp", src=int(s), tgt=int(t), fitness=fit, rmse=rmse,
+            seconds=metrics.rows[row]["seconds"] + (time.time() - t0),
+            status=status, scale_iterations=its, gate_fitness=float(gate_sc))
+        pyramids.evict(s)
 
 
 def _annotate_gate_fitness(cfg: PipelineConfig, clouds, pairs, poses,
@@ -473,70 +531,32 @@ def run_stage2_mgicp(cfg: PipelineConfig, init_poses: np.ndarray | None = None,
             refine = functools.partial(point_sharding.point_sharded_multiscale_gicp, mesh)
     first_row = len(metrics.rows)
     out = np.zeros((n, 4, 4))
-    pyr_cache: dict[int, tuple] = {}
+    pyramids = _ScanCache(n, lambda i: ms_mod.build_pyramid(
+        clouds[i], n_scales=cfg.mgicp_scales, scale_capacities=caps))
+    failures: list[tuple] = []
 
-    def pyramid(i):
-        if i not in pyr_cache:
-            pyr_cache[i] = ms_mod.build_pyramid(clouds[i], n_scales=cfg.mgicp_scales,
-                                                scale_capacities=caps)
-        return pyr_cache[i]
-
-    ckpt = os.path.join(cfg.out_dir("metrics"), "stage2_partial.npy")
-    # Pipelined loop: register up to cfg.inflight pairs before reading the
-    # oldest result, so its device-to-host reads overlap the next pairs' work.
-    inflight: list[tuple] = []
-    retries: list[tuple] = []
-    row_of: dict[int, int] = {}
-    drained = 0
-
-    def drain_one():
-        nonlocal drained
-        k, s, t, res, t_submit = inflight.pop(0)
-        with trace.span("sync", site="drain"):
-            fit = float(res.fitness)
-            out[k] = res.transformation.double().cpu().numpy()
-            rmse, its = float(res.inlier_rmse), res.scale_iterations.tolist()
-        t_read = time.time_ns()
-        trace.record("pair", t_submit, t_read, k=k)
-        row_of[k] = len(metrics.rows)
-        metrics.add("mgicp", s, t, fit, rmse, (t_read - t_submit) * 1e-9, status="ok",
-                    scale_iterations=its)
-        if cfg.retry_failed and fit <= cfg.retry_fitness:
-            retries.append((k, s, t, res))
-        drained = k + 1
-        if writes and drained % 50 == 0:  # crash-resumable partial checkpoint
-            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
-            np.save(ckpt, out[:drained])
-            metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"),
-                         stage="mgicp")
-
-    for k in range(mine.start, mine.stop):
+    def submit(k):
         s, t = pairs[k]
-        t_submit = time.time_ns()
-        res = refine(pyramid(s), pyramid(t), np.asarray(init_poses[k], np.float32),
+        res = refine(pyramids[s], pyramids[t], np.asarray(init_poses[k], np.float32),
                      n_scales=cfg.mgicp_scales, iterations=cfg.mgicp_iterations)
-        inflight.append((k, s, t, res, t_submit))
-        # keep only the pyramids the next pair still needs
-        for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
-            del pyr_cache[key]
-        while len(inflight) >= max(cfg.inflight, 1):
-            drain_one()
-    while inflight:
-        drain_one()
-    for k, s, t, res0 in retries:  # second pass: the retry ladder per failure
-        t0 = time.time()
-        res, status, _ = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
-                                     pyramid(t), seed_base=s)
-        with trace.span("sync", site="retry"):
-            out[k] = res.transformation.double().cpu().numpy()
-            fit, rmse, its = (float(res.fitness), float(res.inlier_rmse),
-                              res.scale_iterations.tolist())
-        metrics.rows[row_of[k]] = dict(
-            stage="mgicp", src=int(s), tgt=int(t), fitness=fit, rmse=rmse,
-            seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
-            status=status, scale_iterations=its)
-        for key in [key for key in pyr_cache if key not in (s, (s + 1) % n)]:
-            del pyr_cache[key]
+        pyramids.evict(s)
+        return res
+
+    def read(k, res):
+        fit = float(res.fitness)
+        out[k] = res.transformation.double().cpu().numpy()
+        return fit, float(res.inlier_rmse), res.scale_iterations.tolist()
+
+    def row(k, res, values, seconds):
+        fit, rmse, its = values
+        if cfg.retry_failed and fit <= cfg.retry_fitness:
+            failures.append((k, len(metrics.rows), res))
+        metrics.add("mgicp", *pairs[k], fit, rmse, seconds, status="ok", scale_iterations=its)
+
+    _stream_pairs(range(mine.start, mine.stop), submit, read, row, cfg.inflight,
+                  _partial_checkpoint(cfg, metrics, stage2=out) if writes else None)
+    _retry_failures(cfg, clouds, pyramids, failures, out, metrics)
+    # the retried rows' gate_fitness, the ladder's score, is overwritten here
     _annotate_gate_fitness(cfg, clouds, pairs[mine], out[mine], metrics)
     if mesh is not None:   # every rank gets every block; rank order is pair order
         parts = collectives.all_gather_objects((mine, out[mine], metrics.rows[first_row:]),
@@ -577,21 +597,14 @@ def run_pair(cfg: PipelineConfig, src_i: int, tgt_i: int, init: np.ndarray | str
     out: dict = {"src": src_i, "tgt": tgt_i, "dataset": cfg.dataset}
     t0 = time.time()
     if isinstance(init, str) and init == "fgr":
-        bs = cloud_mod.compact(src_c, cloud_mod.bucket_capacity(src_c))
-        bt = cloud_mod.compact(tgt_c, cloud_mod.bucket_capacity(tgt_c))
-        if cfg.stage1_features == "banded":
-            bs_f, feat_s = fpfh_sorted.fgr_features_sorted(bs, cfg.voxel_size,
-                                                           band=cfg.stage1_band)
-            bt_f, feat_t = fpfh_sorted.fgr_features_sorted(bt, cfg.voxel_size,
-                                                           band=cfg.stage1_band)
-        else:
-            bs_f, feat_s = fgr_mod.fgr_features(bs, cfg.voxel_size)
-            bt_f, feat_t = fgr_mod.fgr_features(bt, cfg.voxel_size)
-        B = max(bs_f.capacity, bt_f.capacity)
-        bs_f, feat_s, bt_f, feat_t = _pad_pair(bs_f, feat_s, bt_f, feat_t, B)
-        res_fgr = fgr_mod.registration_fgr(
-            bs_f, bt_f, feat_s, feat_t, fgr_mod.default_options(bs_f, bt_f, cfg.voxel_size),
-            seed=cfg.fgr_seed + src_i)
+        # both buckets read before the first launch, so neither read waits on it
+        buckets = [cloud_mod.bucket_capacity(c) for c in (src_c, tgt_c)]
+        (src_f, feat_s), (tgt_f, feat_t) = (
+            _prep_features(c, b, cfg.voxel_size, cfg.stage1_band, cfg.stage1_features)
+            for c, b in zip((src_c, tgt_c), buckets))
+        B = max(src_f.capacity, tgt_f.capacity)
+        res_fgr = _fgr_pair_step(src_f, feat_s, tgt_f, feat_t, cfg.fgr_seed + src_i, B,
+                                 fgr_mod.default_options_capacity(B, cfg.voxel_size))
         with trace.span("sync", site="run_pair"):
             T0 = res_fgr.transformation.double().cpu().numpy()
             fit, rmse = float(res_fgr.fitness), float(res_fgr.inlier_rmse)
@@ -664,8 +677,6 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
     (default: the dataset's scans, loaded onto the card) are on one device,
     where the run happens; on a ``LazyClouds`` each pair also starts the
     uploads of the next two scans.  Returns {"stage1", "stage2", "stage3"}."""
-    if cfg.stage1_features not in ("banded", "selection"):
-        raise ValueError(f"unknown stage1_features {cfg.stage1_features!r}")
     n = n or poses_io.CIRCUIT_SIZES[cfg.dataset]
     if mesh is not None:
         return _run_full_mesh(cfg, clouds, n, metrics, methods, mesh)
@@ -678,73 +689,22 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
         caps = cloud_mod.plan_scale_caps(clouds, ms_mod.create_scales(cfg.mgicp_scales))
     eval_dist = 2 * cfg.voxel_size
     buckets = _buckets(clouds, n, cfg.bucket_granularity)
-    feat_cache: dict[int, tuple] = {}
-    pyr_cache: dict[int, tuple] = {}
-
-    def prep(i):
-        if i not in feat_cache:
-            feat_cache[i] = _prep_features(clouds[i], buckets[i], cfg.voxel_size,
-                                           cfg.stage1_band, cfg.stage1_features)
-        return feat_cache[i], pyramid(i)
-
-    def pyramid(i):
-        if i not in pyr_cache:
-            pyr_cache[i] = ms_mod.build_pyramid(clouds[i], n_scales=cfg.mgicp_scales,
-                                                scale_capacities=caps)
-        return pyr_cache[i]
-
-    def evict(s):
-        # keep only what the next pair (s+1, s) still needs
-        for cache in (feat_cache, pyr_cache):
-            for key in [key for key in cache if key not in (s, (s + 1) % n)]:
-                del cache[key]
-
+    features = _ScanCache(n, lambda i: _prep_features(
+        clouds[i], buckets[i], cfg.voxel_size, cfg.stage1_band, cfg.stage1_features))
+    pyramids = _ScanCache(n, lambda i: ms_mod.build_pyramid(
+        clouds[i], n_scales=cfg.mgicp_scales, scale_capacities=caps))
     out1, out2 = np.zeros((n, 4, 4)), np.zeros((n, 4, 4))
-    ckpt1 = os.path.join(cfg.out_dir("metrics"), "stage1_partial.npy")
-    ckpt2 = os.path.join(cfg.out_dir("metrics"), "stage2_partial.npy")
-    inflight: list[tuple] = []
-    retries: list[tuple] = []
-    row_of: dict[int, int] = {}
-    drained = 0
+    failures: list[tuple] = []
 
-    def save_metrics():
-        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
-        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
-
-    def drain_one():
-        nonlocal drained
-        k, s, t, res1, res2, gate, t_submit = inflight.pop(0)
-        with trace.span("sync", site="drain"):
-            out1[k] = res1.transformation.double().cpu().numpy()
-            fit1, rmse1 = float(res1.fitness), float(res1.inlier_rmse)
-            out2[k] = res2.transformation.double().cpu().numpy()
-            fit, rmse = float(res2.fitness), float(res2.inlier_rmse)
-            its, gate_fit = res2.scale_iterations.tolist(), float(gate)
-        t_read = time.time_ns()
-        trace.record("pair", t_submit, t_read, k=k)
-        seconds = (t_read - t_submit) * 1e-9
-        metrics.add("fgr", s, t, fit1, rmse1, seconds)
-        row_of[k] = len(metrics.rows)
-        metrics.add("mgicp", s, t, fit, rmse, seconds, status="ok", scale_iterations=its,
-                    gate_fitness=gate_fit)
-        if cfg.retry_failed and fit <= cfg.retry_fitness:
-            retries.append((k, s, t, res2))
-        drained = k + 1
-        if drained % 50 == 0:  # crash-resumable partial checkpoints
-            os.makedirs(os.path.dirname(ckpt1), exist_ok=True)
-            np.save(ckpt1, out1[:drained])
-            np.save(ckpt2, out2[:drained])
-            save_metrics()
-
-    for k, (s, t) in enumerate(pairs):
-        t_submit = time.time_ns()
+    def submit(k):
+        s, t = pairs[k]
         if isinstance(clouds, cloud_mod.LazyClouds):
             # start the next two scans' non-blocking uploads now, so they run
             # ahead of the pairs that need them (the LRU keeps at least 8)
             clouds[(s + 1) % n]
             clouds[(s + 2) % n]
-        (src_f, feat_src), pyr_s = prep(s)
-        (tgt_f, feat_tgt), pyr_t = prep(t)
+        (src_f, feat_src), pyr_s = features[s], pyramids[s]
+        (tgt_f, feat_tgt), pyr_t = features[t], pyramids[t]
         B = max(src_f.capacity, tgt_f.capacity)
         opts = fgr_mod.default_options_capacity(B, cfg.voxel_size)
         src_p, fs, tgt_p, ft = _pad_pair(src_f, feat_src, tgt_f, feat_tgt, B)
@@ -757,32 +717,37 @@ def run_full(cfg: PipelineConfig, clouds=None, n: int | None = None,
         with trace.span("gate"):
             gate, _, _ = eval_mod.evaluate_registration(src_p, tgt_p, eval_dist,
                                                         res2.transformation)
-        inflight.append((k, s, t, res1, res2, gate, t_submit))
-        evict(s)
-        while len(inflight) >= max(cfg.inflight, 1):
-            drain_one()
-    while inflight:
-        drain_one()
-    for k, s, t, res0 in retries:  # second pass: the retry ladder per failure
-        t0 = time.time()
-        res, status, gate_sc = _retry_pair(cfg, clouds[s], clouds[t], res0, pyramid(s),
-                                           pyramid(t), seed_base=s)
-        with trace.span("sync", site="retry"):
-            out2[k] = res.transformation.double().cpu().numpy()
-            fit, rmse, its = (float(res.fitness), float(res.inlier_rmse),
-                              res.scale_iterations.tolist())
-        metrics.rows[row_of[k]] = dict(
-            stage="mgicp", src=int(s), tgt=int(t), fitness=fit, rmse=rmse,
-            seconds=metrics.rows[row_of[k]]["seconds"] + (time.time() - t0),
-            status=status, scale_iterations=its, gate_fitness=float(gate_sc))
-        evict(s)
+        features.evict(s)
+        pyramids.evict(s)
+        return res1, res2, gate
+
+    def read(k, results):
+        res1, res2, gate = results
+        out1[k] = res1.transformation.double().cpu().numpy()
+        fit1, rmse1 = float(res1.fitness), float(res1.inlier_rmse)
+        out2[k] = res2.transformation.double().cpu().numpy()
+        fit, rmse = float(res2.fitness), float(res2.inlier_rmse)
+        return fit1, rmse1, fit, rmse, res2.scale_iterations.tolist(), float(gate)
+
+    def row(k, results, values, seconds):
+        fit1, rmse1, fit, rmse, its, gate_fit = values
+        metrics.add("fgr", *pairs[k], fit1, rmse1, seconds)
+        if cfg.retry_failed and fit <= cfg.retry_fitness:
+            failures.append((k, len(metrics.rows), results[1]))
+        metrics.add("mgicp", *pairs[k], fit, rmse, seconds, status="ok", scale_iterations=its,
+                    gate_fitness=gate_fit)
+
+    _stream_pairs(range(n), submit, read, row, cfg.inflight,
+                  _partial_checkpoint(cfg, metrics, stage1=out1, stage2=out2))
+    _retry_failures(cfg, clouds, pyramids, failures, out2, metrics)
     _flag_stage1_outliers(out1, metrics)
     with trace.span("write"):
         poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR"), out1)
         poses_io.save_relative_circuit(cfg.out_dir("relative_poses_FGR_GICP"), out2)
         poses_io.save_absolute_poses(cfg.out_dir("absolute_poses_FGR_GICP"),
                                      se3.relative_to_absolute(out2))
-        save_metrics()
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage1.jsonl"), stage="fgr")
+        metrics.save(os.path.join(cfg.out_dir("metrics"), "stage2.jsonl"), stage="mgicp")
     stage3 = run_stage3_global(cfg, relative_poses=out2, clouds=clouds, n=n, methods=methods)
     return {"stage1": out1, "stage2": out2, "stage3": stage3}
 
