@@ -115,7 +115,8 @@ Phases (any failure ends the run with a non-zero exit code):
  19. data plane — 901 paths (the 8 files and symlinks cycling over them, the
                NCLT circuit's length): seconds to parse them (native,
                threaded) and to pin them, the Python parser's seconds on the
-               8 files, plan_scale_caps' seconds and caps at the 5 scales,
+               8 files, plan_scale_caps' seconds and caps at the 5 scales
+               on the host clouds and through a LazyClouds on the card,
                LazyClouds' prefix upload ms a scan over all 901, and the eager
                load_dataset's seconds and device MiB;
  20. mesh, one rank — a world of one rank over NCCL in this process
@@ -208,6 +209,17 @@ Phases (any failure ends the run with a non-zero exit code):
                rounding of the float64 k smallest; kernel ms, plain ms,
                bound, and the former tiled torch.topk path (knn_tiled) at the
                Facade, NCLT and finest pyramid shapes.
+ 25. voxel counts — the pyramid planner's occupied-voxel counts
+               (feature_kernels.voxel_counts, csrc/voxel_counts.cu) at 2, 32
+               and 128 NCLT-scale scans (the circuit's 8, each copy moved
+               by its own offset), 5 scales: the table bit-equal to the
+               host route's (native.count_voxels) on the same CUDA clouds,
+               plan_scale_caps' caps equal to the host route's on CPU
+               clouds and through a LazyClouds on the card at 128; the
+               kernel's ms (every chunk of the call), the planner's wall
+               on the card and the host route's wall on the same CUDA
+               clouds (copies and sorts, the former path; the record's
+               ``plain_ms``), the bound.
 The line before the last is the kernels' JSON record (``launches``: K1-K6,
 K8-K12 and slab_starts from the CLI's ``full`` run of phase 18, K7 from the
 brute GICP; ``max_abs_err`` of K4 over the cloud's real rows, of K8 over
@@ -2284,6 +2296,11 @@ def phase_data_plane(scans) -> None:
                 == [len(scans[i % N_SCANS]) for i in range(n)]):
             raise AssertionError("load_dataset_host's clouds are not pinned or miscounted")
         lazy = cloud.LazyClouds(host)
+        lazy_caps, t_lazy = synced(lambda: cloud.plan_scale_caps(lazy, multiscale.create_scales(5)))
+        print(f"plan_scale_caps through a LazyClouds on the card: {t_lazy:.3f} s -> {lazy_caps}")
+        if lazy_caps != caps or lazy._cache:
+            raise AssertionError("the card's caps over a LazyClouds differ from the host's, "
+                                 "or it filled the LRU")
         _, t_up = synced(lambda: [lazy[i] for i in range(n)])
         want = cloud.from_numpy(scans[(n - 1) % N_SCANS], CAPACITY)
         if not same_clouds([lazy[n - 1]], [want]):
@@ -3291,6 +3308,53 @@ def phase_k13(dev) -> dict:
                   list(got.values()), got[f"Facade scan {FACADE_SCANS - 1}"])
 
 
+def phase_voxel_counts(dev) -> dict:
+    """Phase 25 (module docstring).  The JSON record keeps the times at 32
+    scans, a seq32 unit's planner call."""
+    import torch
+
+    from pcr_tpu_torch.models import multiscale
+    from pcr_tpu_torch.ops.kernels import feature_kernels
+    from pcr_tpu_torch.utils import cloud
+
+    scans = make_circuit()[0]
+    rng = np.random.default_rng(SEED)
+    scans = scans + [scans[i % N_SCANS] + rng.uniform(-50, 50, 3).astype(np.float32)
+                     for i in range(N_SCANS, 128)]
+    scales = multiscale.create_scales(5)
+    got = {}
+    for n in (2, 32, 128):
+        on_card = [cloud.from_numpy(s, CAPACITY, device=dev) for s in scans[:n]]
+        on_host = [cloud.from_numpy(s, CAPACITY, device="cpu") for s in scans[:n]]
+        table = cloud._card_counts(on_card, scales)
+        if not np.array_equal(table, cloud._card_counts(on_card, scales)):
+            raise AssertionError(f"voxel_counts at {n} scans differs from itself")
+        if not np.array_equal(table, cloud._host_counts(on_card, scales)):
+            raise AssertionError(f"voxel_counts at {n} scans differs from native.count_voxels")
+        caps = cloud.plan_scale_caps(on_card, scales)
+        if caps != cloud.plan_scale_caps(on_host, scales):
+            raise AssertionError(f"the card's caps at {n} scans differ from the host route's")
+        if n == 128:
+            lazy = cloud.LazyClouds(on_host, device=dev)
+            if cloud.plan_scale_caps(lazy, scales) != caps or lazy._cache:
+                raise AssertionError("the caps over a LazyClouds differ or it filled the LRU")
+        points, masks = [c.points for c in on_card], [c.mask for c in on_card]
+        ms = cuda_ms(lambda: feature_kernels.voxel_counts(points, masks, scales), 10)
+        card = statistics.median(synced(lambda: cloud.plan_scale_caps(on_card, scales))[1]
+                                 for _ in range(5)) * 1e3
+        host = statistics.median(synced(lambda: cloud._host_counts(on_card, scales))[1]
+                                 for _ in range(3)) * 1e3
+        bound_ms, by = bound(n * CAPACITY * 13, 0)   # points and mask read once
+        print(f"voxel_counts at {n} scans x {len(scales)} scales: kernel {ms:.4f} ms "
+              f"({len(feature_kernels.voxel_chunks(n, CAPACITY, len(scales)))} launches), "
+              f"planner on the card {card:.3f} ms, host route on the same clouds "
+              f"{host:.3f} ms, bound {bound_ms:.5f} ms ({by}); caps {caps}")
+        got[n] = (0.0, ms, host, bound_ms, by)
+    return record("voxel_counts", "pcr_tpu_torch/csrc/voxel_counts.cu",
+                  "none (pcr_tpu/utils/cloud.py plan_scale_caps counts on the host)",
+                  list(got.values()), got[32])
+
+
 def phase_loop_kernels(dev) -> list[dict]:
     """Phase 23 (module docstring): K8, K9, K11, K12 and K10 (``phase_k10``)
     against their plain versions on the arguments the earlier phases gave
@@ -3375,6 +3439,7 @@ def main() -> int:
     phase_graph_builder(dev)
     records += phase_loop_kernels(dev)
     records.append(phase_k13(dev))
+    records.append(phase_voxel_counts(dev))
     print(f"launches by path: stage 2 {launches2}; stage 1 {launches1}; stage 3 {launches3}; "
           f"stage 1 batched {launches_b1}; stage 2 batched {launches_b2}; "
           f"brute GICP {launches7}; gicp_loss_log {launches_log}; run_full {launches_full}; "

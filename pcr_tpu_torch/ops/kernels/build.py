@@ -49,6 +49,7 @@ SIGNATURES = {
     "pcr_gicp_update": [_P, _I, _P, _P, _F, _F, _P],
     "pcr_knn_morton": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "pcr_knn_select": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "pcr_voxel_counts": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     # bytes of shared memory a block of K4, K5, K6 asks for at a band
     "pcr_moments_smem": [_I],
     "pcr_spfh_smem": [_I],

@@ -71,10 +71,19 @@ The plain versions of K4-K6 follow the XLA path of ``fgr_features_sorted``
 (the same tiles and slabs, d2 by ``common.sqdist_tiles``) over groups of
 tiles, and evaluate every operation the kernels evaluate in the same order,
 so bins and tau agree exactly; only K4's and K6's sums differ in order.
+
+``voxel_counts`` (CUDA source: ``pcr_tpu_torch/csrc/voxel_counts.cu``)
+replaces no TPU kernel: it counts the occupied voxels of every cloud at
+every scale for the pyramid's capacity planner (``utils/cloud.
+plan_scale_caps``), which counted them on the host, one sort a (cloud,
+scale).  Its oracle is that host count, ``native.count_voxels``, which it
+equals bit for bit; the planner's host route runs it for CPU clouds, so the
+wrapper takes CUDA tensors only.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -84,7 +93,7 @@ from ...utils import trace
 from . import build, common
 
 LAUNCHES = {"outlier_stats": 0, "survivor_moments": 0, "moments": 0, "spfh": 0,
-            "fpfh": 0}
+            "fpfh": 0, "voxel_counts": 0}
 BISECT_STEPS = 10
 MAX_LISTED_SLAB = 1 << 16   # K4 and K5 list candidate slab rows in 16 bits
 N_BINS = 11
@@ -482,3 +491,89 @@ def fpfh(starts_el, q, r, tau, spfh_r, *, q_tile: int, band: int):
     LAUNCHES["fpfh"] += 1
     trace.shape("fpfh", n_tiles, q.shape[0], r.shape[0], q_tile, band)
     return out
+
+
+VOXEL_SCRATCH_BYTES = 1 << 26   # the hash tables of one voxel_counts launch
+MAX_VOXEL_CLOUDS = 64           # clouds a launch (csrc/voxel_counts.cu kMaxClouds)
+MAX_VOXEL_SCALES = 8            # ... and scales (kMaxScales)
+
+
+def voxel_slots_log2(rows: int) -> int:
+    """log2 of the slots of a (cloud, scale) hash table for clouds of at most
+    ``rows`` rows: the least power of two >= 2 * rows, so no table is more
+    than half full."""
+    return max(1, (2 * rows - 1).bit_length())
+
+
+def voxel_chunks(n_clouds: int, rows: int, n_scales: int) -> list[slice]:
+    """The clouds of each ``voxel_counts`` launch: consecutive chunks of
+    near-equal size whose tables (``n_scales`` of 2^voxel_slots_log2(rows)
+    64-bit keys a cloud) fit VOXEL_SCRATCH_BYTES, at most MAX_VOXEL_CLOUDS
+    clouds; a cloud whose tables alone exceed the budget is a chunk."""
+    if n_clouds <= 0:
+        return []
+    per_cloud = n_scales * (8 << voxel_slots_log2(rows))
+    most = max(1, min(MAX_VOXEL_CLOUDS, VOXEL_SCRATCH_BYTES // per_cloud))
+    n_chunks = -(-n_clouds // most)
+    size, extra = divmod(n_clouds, n_chunks)
+    bounds = [k * size + min(k, extra) for k in range(n_chunks + 1)]
+    return [slice(a, b) for a, b in zip(bounds, bounds[1:])]
+
+
+def voxel_counts(points, masks, scales) -> torch.Tensor:
+    """Occupied-voxel counts of every cloud at every scale, on the card.
+
+    points: sequence of (n_i, 3) f32 CUDA tensors, one a cloud; masks: the
+    same number of (n_i,) bool tensors, or None where every row is valid;
+    scales: the voxel sizes (at most MAX_VOXEL_SCALES, each rounded to
+    float32).  Returns a (clouds, scales) int64 tensor on the clouds' card,
+    enqueued on the current stream: entry (k, s) is
+    ``native.count_voxels(valid rows of cloud k, scales[s])`` bit for bit.
+    One launch a chunk of ``voxel_chunks``; scratch by ``torch.empty``.
+    Raises for CPU tensors, a wrong dtype, shape or layout, and a mix of
+    devices.
+    """
+    points, masks = list(points), list(masks)
+    scales = [float(v) for v in scales]
+    if not 1 <= len(scales) <= MAX_VOXEL_SCALES or not all(v > 0 for v in scales):
+        raise ValueError(f"voxel_counts: 1 to {MAX_VOXEL_SCALES} positive scales, got {scales}")
+    if len(masks) != len(points):
+        raise ValueError(f"voxel_counts: {len(points)} clouds but {len(masks)} masks")
+    tensors = []
+    for k, (p, m) in enumerate(zip(points, masks)):
+        rows = p.shape[0] if p.dim() else 0
+        common.check(p, f"points[{k}]", torch.float32, (rows, 3))
+        if rows >= 1 << 30:
+            raise ValueError(f"voxel_counts: points[{k}] has {rows} rows, at most 2^30 - 1")
+        tensors.append(p)
+        if m is not None:
+            common.check(m, f"masks[{k}]", torch.bool, (rows,))
+            tensors.append(m)
+    if not tensors or not common.on_cuda(*tensors):
+        raise ValueError("voxel_counts takes CUDA tensors; CPU clouds are counted on the host "
+                         "(utils/cloud.plan_scale_caps)")
+    dev, n, n_s = tensors[0].device, len(points), len(scales)
+    counts = torch.empty((n, n_s), dtype=torch.int64, device=dev)
+    rows = max(p.shape[0] for p in points)
+    log2 = voxel_slots_log2(rows)
+    chunks = voxel_chunks(n, rows, n_s)
+    most = max(c.stop - c.start for c in chunks)
+    tables = torch.empty((most * n_s) << log2, dtype=torch.int64, device=dev)
+    mins = torch.empty(most * 3, dtype=torch.float32, device=dev)
+    c_scales = (ctypes.c_float * n_s)(*scales)
+    lib = build.library()
+    for c in chunks:
+        k = c.stop - c.start
+        c_points = (ctypes.c_void_p * k)(*[p.data_ptr() for p in points[c]])
+        c_masks = (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr()
+                                          for m in masks[c]])
+        c_rows = (ctypes.c_int * k)(*[p.shape[0] for p in points[c]])
+        with torch.cuda.device(dev):
+            err = lib.pcr_voxel_counts(
+                ctypes.addressof(c_points), ctypes.addressof(c_masks), ctypes.addressof(c_rows),
+                k, ctypes.addressof(c_scales), n_s, log2, tables.data_ptr(), mins.data_ptr(),
+                counts[c].data_ptr(), common.stream_of(counts))
+        build.check_launch("voxel_counts", err)
+        LAUNCHES["voxel_counts"] += 1
+        trace.shape("voxel_counts", k, rows, n_s, 1 << log2)
+    return counts

@@ -273,9 +273,9 @@ class LazyClouds:
     ``[i]`` (``_upload_prefix``, non-blocking), keeping the ``keep`` most
     recently used on ``device`` (default: the CUDA card): the circuit runners
     touch scans in a sliding window, so uploads stream inside the compute
-    loop.  Iteration yields the HOST clouds, which the host-side planners
-    (``plan_scale_caps``, ``bucket_capacity``) read with no device traffic;
-    indexing returns device clouds for the compute path.
+    loop.  Iteration yields the HOST clouds, which ``bucket_capacity`` reads
+    with no device traffic and ``plan_scale_caps`` uploads to its own buffer,
+    outside the LRU; indexing returns device clouds for the compute path.
     """
 
     def __init__(self, host_clouds: list[Cloud], keep: int = 8,
@@ -288,6 +288,11 @@ class LazyClouds:
 
     def __len__(self) -> int:
         return len(self._host)
+
+    @property
+    def device(self) -> torch.device:
+        """The device that ``[i]`` uploads to."""
+        return self._device
 
     def __iter__(self):
         return iter(self._host)
@@ -376,34 +381,88 @@ def bucket_capacity(c: Cloud, granularity: int = 4096) -> int:
     return min(c.capacity, max(granularity, -(-nv // granularity) * granularity))
 
 
-@trace.spanned("data.plan_caps")
-def plan_scale_caps(clouds: list[Cloud], scales: list[float],
-                    bucket: int = 1024, margin: int = 64) -> tuple[int, ...]:
-    """Host-side capacity planner for the multiscale pyramid: for each voxel
-    scale count the occupied voxels of every cloud (the ops/voxel convention
+def plan_scale_caps(clouds, scales: list[float], bucket: int = 1024,
+                    margin: int = 64) -> tuple[int, ...]:
+    """Capacity planner for the multiscale pyramid: for each voxel scale
+    count the occupied voxels of every cloud (the ops/voxel convention
     ``floor((p - min_valid) / v)``) and round the worst case plus ``margin``
-    up to a ``bucket`` multiple, capped at the clouds' capacity.  Host clouds
-    are read as they are; the counting runs in the native library when it is
-    there, else in numpy."""
+    up to a ``bucket`` multiple, capped at the clouds' capacity.
+
+    The counts are taken where the clouds live.  Clouds on a CUDA card, and
+    a ``LazyClouds`` whose device is one, are counted there by
+    ``feature_kernels.voxel_counts`` (one launch a chunk of clouds) and read
+    back as one (clouds, scales) table: no cloud is copied to the host, and a
+    LazyClouds' scans are uploaded chunk by chunk into one reused buffer,
+    outside its LRU.  CPU clouds are counted on the host, in the native
+    library when it is there, else in numpy.  Both routes give the same
+    counts, so the same caps."""
+    first = next(iter(clouds))   # never uploads a LazyClouds scan
+    device = clouds.device if isinstance(clouds, LazyClouds) else first.device
+    route = "card" if device.type == "cuda" else "host"
+    with trace.span("data.plan_caps", route=route, clouds=len(clouds)):
+        counts = (_card_counts(clouds, scales) if route == "card"
+                  else _host_counts(clouds, scales))
+        return tuple(min(-(-(int(worst) + margin) // bucket) * bucket, first.capacity)
+                     for worst in counts.max(axis=0))
+
+
+def _host_counts(clouds, scales: list[float]) -> np.ndarray:
+    """(clouds, scales) occupied-voxel counts on the host: every cloud read
+    as it is (a copy from its device), then one native count (or numpy's
+    unique) a (cloud, scale)."""
     from .. import native
 
-    full_cap = next(iter(clouds)).capacity   # never uploads a LazyClouds scan
     use_native = native.available()
     valid_pts = [c.points.detach().cpu().numpy()[c.mask.detach().cpu().numpy()]
                  for c in clouds]
-    caps = []
-    for v in scales:
-        worst = 0
-        for pts in valid_pts:
+    counts = np.zeros((len(valid_pts), len(scales)), dtype=np.int64)
+    for s, v in enumerate(scales):
+        for k, pts in enumerate(valid_pts):
             if use_native:
-                count = native.count_voxels(pts, v)
+                counts[k, s] = native.count_voxels(pts, v)
             else:
                 ijk = np.floor((pts - pts.min(axis=0)) / np.float32(v)).astype(np.int64)
                 key = (ijk[:, 0] << 42) + (ijk[:, 1] << 21) + ijk[:, 2]
-                count = int(np.unique(key).size)
-            worst = max(worst, count)
-        caps.append(min(-(-(worst + margin) // bucket) * bucket, full_cap))
-    return tuple(caps)
+                counts[k, s] = int(np.unique(key).size)
+    return counts
+
+
+def _valid_rows(h: Cloud) -> torch.Tensor:
+    """A host cloud's valid points: a view of its prefix when the mask is
+    one (as the loaders give it), else a gather."""
+    n_valid = int(h.mask.sum())
+    if bool(h.mask[:n_valid].all()):
+        return h.points[:n_valid]
+    return h.points[h.mask]
+
+
+def _card_counts(clouds, scales: list[float]) -> np.ndarray:
+    """(clouds, scales) occupied-voxel counts on the card (see
+    ``plan_scale_caps``), with one blocking read of the table."""
+    from ..ops.kernels import feature_kernels
+
+    if isinstance(clouds, LazyClouds):
+        host = list(clouds)
+        cap = max(h.capacity for h in host)
+        chunks = feature_kernels.voxel_chunks(len(host), cap, len(scales))
+        most = max(c.stop - c.start for c in chunks)
+        buf = torch.empty((most * cap, 3), dtype=torch.float32, device=clouds.device)
+        tables = []
+        for c in chunks:
+            # the stream orders these copies after the previous chunk's launch
+            views, off = [], 0
+            for h in host[c]:
+                rows = _valid_rows(h)
+                views.append(buf[off:off + rows.shape[0]])
+                views[-1].copy_(rows, non_blocking=True)
+                off += rows.shape[0]
+            tables.append(feature_kernels.voxel_counts(views, [None] * len(views), scales))
+        table = torch.cat(tables)
+    else:
+        table = feature_kernels.voxel_counts([c.points.contiguous() for c in clouds],
+                                             [c.mask.contiguous() for c in clouds], scales)
+    with trace.span("sync", site="plan_caps"):
+        return table.cpu().numpy()
 
 
 def stack_clouds(clouds: list[Cloud]) -> Cloud:

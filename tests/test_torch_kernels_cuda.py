@@ -810,3 +810,193 @@ def test_knn_select_never_falls_back(cuda_rng, monkeypatch):
         nn_kernels.knn_select(f, f, torch.ones(100, dtype=torch.bool, device=x.device), 20)
     with pytest.raises(ValueError):
         nn_kernels.knn_select(x, x, mask, nn_kernels.KNN_MAX_K + 1)
+
+
+# voxel_counts (csrc/voxel_counts.cu): the pyramid planner's occupied-voxel
+# counts, held bit for bit to native.count_voxels (the host route's count).
+VOXEL_SCALES = multiscale.create_scales(5) + [0.8, 0.05, 0.37]
+
+
+@pytest.fixture(scope="module")
+def nclt_scans():
+    """32 scans of portbench's NCLT scene (~24k points each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from portbench import scene
+
+    return scene.make_circuit(32, 2718281828, 0, capacity=32768, target_points=24000,
+                              noise_m=0.01, side_step_m=1.0)[0]
+
+
+def _padded(pts: np.ndarray, capacity: int):
+    mask = np.zeros(capacity, dtype=bool)
+    mask[:len(pts)] = True
+    out = np.full((capacity, 3), cloud.PAD_COORD, dtype=np.float32)
+    out[:len(pts)] = pts
+    return out, mask
+
+
+def _voxel_case(rng, kind: str, nclt):
+    """(points (n, 3) f32, mask (n,) bool) numpy arrays of one case."""
+    if kind == "nclt":
+        return _padded(nclt[0], 32768)
+    if kind == "facade":     # the Facade bucket, its first scan's count
+        return _padded(rng.uniform([0, 0, 0], [60, 40, 20], size=(44728, 3)).astype(np.float32),
+                       90112)
+    if kind == "holes":      # masked rows hold points far below the valid ones
+        pts = rng.uniform(-20, 20, size=(20000, 3)).astype(np.float32)
+        mask = rng.random(20000) < 0.6
+        pts[~mask] = rng.uniform(-1e5, -1e4, size=(int((~mask).sum()), 3))
+        return pts, mask
+    if kind == "empty":
+        return np.full((4096, 3), cloud.PAD_COORD, np.float32), np.zeros(4096, dtype=bool)
+    if kind == "one point":
+        return _padded(np.array([[1.25, -3.5, 7.0]], np.float32), 256)
+    if kind == "duplicated":
+        pts = rng.uniform(-10, 10, size=(5000, 3)).astype(np.float32)
+        return _padded(np.repeat(pts, 4, axis=0)[rng.permutation(20000)], 20480)
+    if kind == "negative":
+        return _padded(rng.uniform(-600, -100, size=(10000, 3)).astype(np.float32), 10240)
+    if kind == "boundaries":  # mn + k * v in float32, for every scale
+        mn = np.array([-3.7, 12.1, 0.3], np.float32)
+        parts = [mn[None]]
+        for v in VOXEL_SCALES:
+            k = rng.integers(0, 200, size=(2500, 3)).astype(np.float32)
+            parts.append(mn + k * np.float32(v))
+        return _padded(np.concatenate(parts).astype(np.float32), 20480)
+    raise ValueError(kind)
+
+
+VOXEL_CASES = ["nclt", "facade", "holes", "empty", "one point", "duplicated", "negative",
+               "boundaries"]
+
+
+def _native_table(points: np.ndarray, mask: np.ndarray, scales) -> np.ndarray:
+    from pcr_tpu_torch import native
+
+    return np.array([native.count_voxels(points[mask], v) for v in scales], dtype=np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", VOXEL_CASES)
+def test_voxel_counts_kernel_matches_native(cuda_rng, nclt_scans, kind):
+    """Every (cloud, scale) count equals native.count_voxels on the valid
+    rows, twice bit for bit, one launch a call; without its mask the cloud
+    counts every row."""
+    dev = torch.device("cuda")
+    pts, mask = _voxel_case(cuda_rng, kind, nclt_scans)
+    p, m = torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev)
+    before = feature_kernels.LAUNCHES["voxel_counts"]
+    first = feature_kernels.voxel_counts([p], [m], VOXEL_SCALES)
+    again = feature_kernels.voxel_counts([p], [m], VOXEL_SCALES)
+    torch.cuda.synchronize()
+    assert feature_kernels.LAUNCHES["voxel_counts"] == before + 2
+    assert first.dtype == torch.int64 and tuple(first.shape) == (1, len(VOXEL_SCALES))
+    assert torch.equal(first, again)
+    np.testing.assert_array_equal(first[0].cpu().numpy(), _native_table(pts, mask, VOXEL_SCALES))
+    valid = p[m].contiguous()
+    unmasked = feature_kernels.voxel_counts([valid], [None], VOXEL_SCALES)
+    assert torch.equal(unmasked, first)
+
+
+@pytest.mark.cuda
+def test_voxel_counts_kernel_chunks_mixed_clouds(cuda_rng, nclt_scans):
+    """Every case and the 32 NCLT scans in one call (capacities 256 to
+    90112): one launch a chunk of voxel_chunks, each row the native count."""
+    dev = torch.device("cuda")
+    cases = [_voxel_case(cuda_rng, k, nclt_scans) for k in VOXEL_CASES]
+    cases += [_padded(s, 32768) for s in nclt_scans]
+    pts = [torch.as_tensor(p, device=dev) for p, _ in cases]
+    masks = [torch.as_tensor(m, device=dev) for _, m in cases]
+    before = feature_kernels.LAUNCHES["voxel_counts"]
+    got = feature_kernels.voxel_counts(pts, masks, VOXEL_SCALES).cpu().numpy()
+    chunks = feature_kernels.voxel_chunks(len(cases), 90112, len(VOXEL_SCALES))
+    assert feature_kernels.LAUNCHES["voxel_counts"] == before + len(chunks) > before + 1
+    want = np.stack([_native_table(p, m, VOXEL_SCALES) for p, m in cases])
+    np.testing.assert_array_equal(got, want)
+
+
+def _shifted_scans(scans, n: int, seed: int = 5):
+    """n scans cycling over ``scans``, each copy moved by its own offset."""
+    rng = np.random.default_rng(seed)
+    return [scans[i % len(scans)] + (rng.uniform(-50, 50, 3).astype(np.float32)
+                                     if i >= len(scans) else np.float32(0))
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 32, 128])
+def test_plan_scale_caps_card_route_equals_host(nclt_scans, monkeypatch, n):
+    """On CUDA clouds the planner counts on the card: its table and caps
+    equal the host route's on the same scans, one launch a chunk, one
+    blocking read (a ``sync`` span at site plan_caps) and no cloud copied to
+    the host; the span says route card."""
+    dev = torch.device("cuda")
+    scans = _shifted_scans(nclt_scans, n)
+    scales = multiscale.create_scales(5)
+    on_card = [cloud.from_numpy(s, 32768, device=dev) for s in scans]
+    on_host = [cloud.from_numpy(s, 32768, device="cpu") for s in scans]
+    want_table = cloud._host_counts(on_host, scales)
+    want = cloud.plan_scale_caps(on_host, scales)
+    torch.cuda.synchronize()
+    copies = []
+    to_host = torch.Tensor.cpu
+
+    def cpu(t, *args, **kw):
+        copies.append((tuple(t.shape), t.dtype, t.device.type))
+        return to_host(t, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    before = feature_kernels.LAUNCHES["voxel_counts"]
+    trace.reset()
+    trace.enable()
+    try:
+        caps = cloud.plan_scale_caps(on_card, scales)
+    finally:
+        trace.disable()
+    assert caps == want
+    assert copies == [((n, len(scales)), torch.int64, "cuda")]
+    assert feature_kernels.LAUNCHES["voxel_counts"] == before + len(
+        feature_kernels.voxel_chunks(n, 32768, len(scales)))
+    spans = trace.snapshot().spans
+    assert [s[5] for s in spans if s[0] == "data.plan_caps"] == [{"route": "card", "clouds": n}]
+    assert [s[5] for s in spans if s[0] == "sync"] == [{"site": "plan_caps"}]
+    np.testing.assert_array_equal(cloud._card_counts(on_card, scales), want_table)
+
+
+@pytest.mark.cuda
+def test_plan_scale_caps_lazy_clouds_on_the_card(nclt_scans):
+    """A LazyClouds on the card gives the host route's caps through the
+    kernel, one launch a chunk, and no scan enters its LRU; one host cloud
+    has holes in its mask."""
+    dev = torch.device("cuda")
+    scans = _shifted_scans(nclt_scans, 64)
+    scales = multiscale.create_scales(5)
+    host = [cloud.from_numpy(s, 32768, device="cpu") for s in scans]
+    order = torch.as_tensor(np.random.default_rng(6).permutation(32768))
+    host[3] = cloud.Cloud(points=host[3].points[order].contiguous(),
+                          mask=host[3].mask[order].contiguous())
+    host = [cloud.Cloud(points=h.points.pin_memory(), mask=h.mask.pin_memory()) for h in host]
+    want = cloud.plan_scale_caps(host, scales)
+    lazy = cloud.LazyClouds(host, device=dev)
+    before = feature_kernels.LAUNCHES["voxel_counts"]
+    assert cloud.plan_scale_caps(lazy, scales) == want
+    assert feature_kernels.LAUNCHES["voxel_counts"] == before + len(
+        feature_kernels.voxel_chunks(64, 32768, len(scales)))
+    assert not lazy._cache and not lazy._order
+    np.testing.assert_array_equal(cloud._card_counts(lazy, scales),
+                                  cloud._host_counts(host, scales))
+
+
+@pytest.mark.cuda
+def test_voxel_counts_refuses_on_the_card(cuda_rng):
+    """CUDA tensors of the wrong dtype, shape or a mix of devices raise."""
+    dev = torch.device("cuda")
+    p = torch.zeros((64, 3), device=dev)
+    m = torch.ones(64, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        feature_kernels.voxel_counts([p.double()], [m], [0.1])
+    with pytest.raises(ValueError):
+        feature_kernels.voxel_counts([p[:, :2].contiguous()], [m], [0.1])
+    with pytest.raises(ValueError):
+        feature_kernels.voxel_counts([p], [m.cpu()], [0.1])
